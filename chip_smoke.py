@@ -5,24 +5,40 @@ Run from the root of the repository on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port only (no JAX) through five phases; any failure exits
+It drives the port only (no JAX) through these phases; any failure exits
 nonzero:
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power
    limit of the card.
-2. build: compiles the batched-Cholesky kernel from the checkout's
+2. build: compiles the batched-Cholesky kernels from the checkout's
    sources and prints nvcc's -Xptxas -v report.
-3. kernels: each kernel against its plain PyTorch version on the card
-   (f64 and f32, n=6 and n=3, a ragged batch, a non-SPD block, a
-   cond-1e6 f32 batch), then times kernel, plain version and the
-   PyTorch library call at the main path's shapes.
+3. kernels: each kernel against its plain PyTorch version on the card:
+   the factor-then-solve checks (f64 and f32, n=6 and n=3, a ragged
+   batch, a non-SPD block, a cond-1e6 f32 batch), then the fused
+   cholesky_factor_solve and the solve at the Schur step's shapes
+   (opencv8_1cam, rig16cam), a ragged B, K past a warp, B = 0 and a
+   large-B sweep, f64 and f32.
 4. main path: the bench's opencv8_1cam calibration (LENSMODEL_OPENCV8, one
    camera, 84 frames of a 14x14 board; 32938 measurements, 518 states),
    perturbed as bench._perturbed_oi(seed=1), solved by optimize() on the
-   card in f64 (warm-up, then timed, with the kernels' launch counts) and
-   in mixed precision.  The converged rms is held to the JAX package's
-   f64 result, 0.2958451838 px.
-5. the last line: {"ok": true, "device": {...}}.
+   card in f64 (warm-up, then timed, with the kernels' launch counts: one
+   cholesky_factor_solve and one cholesky_solve_factored per iteration)
+   and in mixed precision.  The converged rms is held to the JAX
+   package's f64 result, 0.2958451838 px, in 32 +- 3 iterations.
+5. rig16cam: the bench's widest block solve (16 cameras, 40 frames;
+   251040 measurements, 524 states; the frame blocks are solved against
+   K = 285 columns), warm-up, then a timed f64 solve held to the JAX
+   package's f64 rms, 0.2990332534 px.
+6. kernel times: each kernel at the shapes of phase 3 in f64 (CUDA
+   events, and device time per launch from torch.profiler) beside its
+   plain version, the PyTorch library call and its bound, and beside the
+   launch floor (a one-element torch.add).
+7. profile: one more f64 solve of each under torch.profiler (device time
+   by kernel, launches per iteration, busy share).
+8. the last line: {"ok": true, "device": {...}}.
+
+The timed solves come before any profiler session or kernel timing, so
+that those do not weigh on the solves' wall time.
 """
 
 import json
@@ -38,7 +54,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the JAX package's converged rms on this problem (f64, CPU backend)
 F64_RMS = 0.2958451838
 F64_RMS_TOL = 1e-6
+F64_NITER, F64_NITER_TOL = 32, 3     # the JAX package's count
 MIXED_RMS_TOL = 1e-5
+# rig16cam: the JAX package's converged f64 rms on the CPU (64 iterations):
+# JAX_PLATFORMS=cpu python -c "import bench, mrcal_tpu; ..." (PERF.md)
+RIG16_F64_RMS = 0.2990332534279465
+RIG16_F64_RMS_TOL = 1e-6
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 # non-tensor-core FP64 / FP32 rates
@@ -46,6 +67,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}
 KERNEL_REPLACES = "mrcal_tpu/ops/batched_cholesky.py:118"
 KERNEL_SOURCE = "mrcal_tpu_torch/csrc/batched_cholesky.cu"
+# the kernels' wrappers, as named in the kernels line and the launch counts
+LAUNCHED = ("cholesky_factor_solve", "cholesky_solve_factored",
+            "cholesky_factor")
+SOLVE_KW = dict(update_threshold=1e-7, max_iterations=2000)
 
 
 def fail(msg):
@@ -58,6 +83,8 @@ def log(msg):
 
 
 def rel_err(a, b):
+    if not b.numel():
+        return 0.0
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
 
@@ -80,6 +107,29 @@ def time_ms(torch, fn, reps=200, warmup=20):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_us(torch, fn, name, reps=20):
+    """Device time per launch (us) of the kernels whose profiler key holds
+    name + "<" (None: every kernel), over reps calls of fn.  A session
+    that saw none of them is taken again, twice at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        sel = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and (name is None or name + "<" in e.key)]
+        n = sum(e.count for e in sel)
+        if n:
+            return sum(e.self_device_time_total for e in sel) / n
+    return None
 
 
 def phase_device(torch):
@@ -106,7 +156,7 @@ def phase_build():
     return built
 
 
-def phase_kernels(torch, card):
+def phase_kernels(torch):
     from mrcal_tpu_torch.ops import batched_cholesky as bc
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -165,61 +215,168 @@ def phase_kernels(torch, card):
         if not (np.isfinite(x).all() and rel < 0.1):
             fail(f"cond-1e6 f32 case: {label} rel err {rel}")
 
-    # times at the main path's shapes: frame blocks (B=84, n=6), the
-    # camera coupling solve (K=14), f64
-    B, n, K = 84, 6, 14
+    check_fused(torch, rng)
+
+
+# (B, n, K) where the fused kernel and the solve are held to their plain
+# versions: the Schur step's shapes on opencv8_1cam (K = Nc + 1 = 15, and
+# 1 for the back-substitution) and rig16cam (K = 16*12 + 15*6 + 2 + 1 =
+# 285), a ragged B with K past a warp, B = 0, and the large-B sweep (K = 0
+# is the fused entry with no right-hand side)
+MAIN_SHAPES = [(84, 6, 15), (84, 6, 1)]
+RIG16_SHAPES = [(40, 6, 285), (40, 6, 1)]
+LARGE_SHAPES = [(1 << 20, 3, 4), (1 << 18, 6, 15), (1 << 20, 3, 1),
+                (1 << 18, 6, 1)]
+CHECK_SHAPES = (MAIN_SHAPES + RIG16_SHAPES + [(131, 6, 33), (131, 3, 4),
+                                               (0, 6, 15), (70000, 6, 0)]
+                + LARGE_SHAPES)
+
+
+def check_fused(torch, rng):
+    from mrcal_tpu_torch.ops import batched_cholesky as bc
+    dev = torch.device("cuda")
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}
+    for dt in (torch.float64, torch.float32):
+        for B, n, K in CHECK_SHAPES:
+            A_np, rhs_np = spd_batch(rng, B, n, K)
+            A = torch.as_tensor(A_np, dtype=dt, device=dev)
+            rhs = torch.as_tensor(rhs_np, dtype=dt, device=dev)
+            L_p, x_p = bc.cholesky_factor_solve_plain(A, rhs)
+            L_k, x_k = bc.cholesky_factor_solve(A, rhs)
+            x_s = bc.cholesky_solve_factored(L_p, rhs)
+            torch.cuda.synchronize()
+            if L_k.shape != (B, n, n) or x_k.shape != (B, n, K):
+                fail(f"fused kernel: wrong output shape at {(B, n, K)}")
+            errs = ([rel_err(L_k, L_p), rel_err(x_k, x_p), rel_err(x_s, x_p)]
+                    if B else [0.0, 0.0, 0.0])
+            log(f"[kernels] {str(dt)[6:]} B={B} n={n} K={K}: fused L rel "
+                f"err {errs[0]:.3e}, x {errs[1]:.3e}; solve x "
+                f"{errs[2]:.3e} (tol {tol[dt]:g})")
+            if not all(e <= tol[dt] for e in errs):
+                fail(f"fused or solve kernel disagrees with the plain "
+                     f"version at {dt} B={B} n={n} K={K}")
+
+    # a non-SPD block, among few and many: non-finite there, finite
+    # elsewhere
+    for dt in (torch.float64, torch.float32):
+        for B, K in ((84, 15), (70000, 1)):
+            A_np, rhs_np = spd_batch(rng, B, 6, K)
+            A_np[5] = -A_np[5]
+            A = torch.as_tensor(A_np, dtype=dt, device=dev)
+            rhs = torch.as_tensor(rhs_np, dtype=dt, device=dev)
+            for label, x in (
+                    ("fused", bc.cholesky_factor_solve(A, rhs)[1]),
+                    ("solve", bc.cholesky_solve_factored(
+                        bc.cholesky_factor(A), rhs))):
+                ok = torch.cat([x[:5], x[6:]])
+                if torch.isfinite(x[5]).any() or \
+                        not torch.isfinite(ok).all():
+                    fail(f"non-SPD block: {label} {dt} B={B} is not "
+                         "non-finite in that block alone")
+    log("[kernels] non-SPD block -> non-finite in that block only (fused "
+        "and factor+solve kernels, B = 84 and 70000, f64 and f32)")
+
+
+def _bound(B, n, K, elt, wrapper):
+    """Least time (ms) for a wrapper's work on the card, and its limit."""
+    ops_f = B * (sum(i * (i + 1) for i in range(n)) + n * (n + 1) // 2)
+    ops_s = B * K * 2 * n * n
+    nbytes, nops = dict(
+        cholesky_factor=(2 * B * n * n, ops_f),
+        cholesky_solve_factored=(B * n * n + 2 * B * n * K, ops_s),
+        cholesky_factor_solve=(2 * B * n * n + 2 * B * n * K,
+                               ops_f + ops_s))[wrapper]
+    nbytes *= elt
+    t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_o = nops / PEAK_OPS_PER_S["float64" if elt == 8 else "float32"] * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes
+
+
+def time_kernels(torch, card):
+    """Each wrapper at its shapes, f64: CUDA-event ms per call, device us
+    per launch, plain and library ms, bound and share; and the launch
+    floor."""
+    from mrcal_tpu_torch.ops import batched_cholesky as bc
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
     dt = torch.float64
-    A_np, rhs_np = spd_batch(rng, B, n, K)
-    A = torch.as_tensor(A_np, dtype=dt, device=dev)
-    rhs = torch.as_tensor(rhs_np, dtype=dt, device=dev)
-    L = bc.cholesky_factor_plain(A)
-    err_f = float((bc.cholesky_factor(A) - L).abs().max())
-    err_s = float((bc.cholesky_solve_factored(L, rhs)
-                   - bc.cholesky_solve_factored_plain(L, rhs)).abs().max())
-    elt = A.element_size()
-    flops_f = B * (sum(i * (i + 1) for i in range(n)) + n * (n + 1) // 2)
-    flops_s = B * K * 2 * n * n
-    bytes_f = 2 * B * n * n * elt
-    bytes_s = (B * n * n + 2 * B * n * K) * elt
 
-    def bound(nbytes, nops):
-        t_b = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_o = nops / PEAK_OPS_PER_S["float64"] * 1e3
-        return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+    x1 = torch.zeros(1, dtype=dt, device=dev)
+    floor_ms = time_ms(torch, lambda: torch.add(x1, x1))
+    floor_us = device_us(torch, lambda: torch.add(x1, x1), None)
+    log(f"[kernels] launch floor (one-element torch.add, f64): "
+        f"{floor_ms:.4f} ms per call (CUDA events), {floor_us:.3f} us "
+        "device time per launch (profiler)")
 
-    timings = dict(
-        factor=(time_ms(torch, lambda: bc.cholesky_factor(A)),
-                time_ms(torch, lambda: bc.cholesky_factor_plain(A)),
-                time_ms(torch, lambda: torch.linalg.cholesky(A))),
-        solve=(time_ms(torch, lambda: bc.cholesky_solve_factored(L, rhs)),
-               time_ms(torch,
-                       lambda: bc.cholesky_solve_factored_plain(L, rhs)),
-               time_ms(torch, lambda: torch.cholesky_solve(rhs, L))))
-    both = (time_ms(torch, lambda: bc.batched_cholesky_solve(A, rhs)),
-            time_ms(torch, lambda: bc.cholesky_solve_factored_plain(
-                bc.cholesky_factor_plain(A), rhs)),
-            time_ms(torch, lambda: torch.cholesky_solve(
-                rhs, torch.linalg.cholesky(A))))
-    log(f"[kernels] factor+solve at B={B} n={n} K={K} f64: kernels "
-        f"{both[0]:.4f} ms, plain {both[1]:.4f} ms, torch.linalg.cholesky "
-        f"+ torch.cholesky_solve {both[2]:.4f} ms")
+    shapes = dict(
+        cholesky_factor_solve=MAIN_SHAPES + RIG16_SHAPES + LARGE_SHAPES,
+        cholesky_solve_factored=MAIN_SHAPES + RIG16_SHAPES + LARGE_SHAPES,
+        cholesky_factor=[(84, 6, 0), (1 << 20, 3, 0), (1 << 18, 6, 0)])
+    results = {name: [] for name in shapes}
+    for name, todo in shapes.items():
+        for B, n, K in todo:
+            A_np, rhs_np = spd_batch(rng, B, n, max(K, 1))
+            A = torch.as_tensor(A_np, dtype=dt, device=dev)
+            rhs = torch.as_tensor(rhs_np[..., :K], dtype=dt, device=dev)
+            L = torch.linalg.cholesky(A).contiguous()
+            kernel, plain, library = dict(
+                cholesky_factor_solve=(
+                    lambda: bc.cholesky_factor_solve(A, rhs),
+                    lambda: bc.cholesky_factor_solve_plain(A, rhs),
+                    lambda: torch.cholesky_solve(
+                        rhs, torch.linalg.cholesky(A))),
+                cholesky_solve_factored=(
+                    lambda: bc.cholesky_solve_factored(L, rhs),
+                    lambda: bc.cholesky_solve_factored_plain(L, rhs),
+                    lambda: torch.cholesky_solve(rhs, L)),
+                cholesky_factor=(
+                    lambda: bc.cholesky_factor(A),
+                    lambda: bc.cholesky_factor_plain(A),
+                    lambda: torch.linalg.cholesky(A)))[name]
+            out_k = kernel()
+            out_p = plain()
+            if name == "cholesky_factor_solve":
+                out_k, out_p = out_k[1], out_p[1]
+            err = float((out_k - out_p).abs().max())
+            large = B > 10000
+            reps, warm = (10, 3) if large else (200, 20)
+            k_ms = time_ms(torch, kernel, reps, warm)
+            p_ms = time_ms(torch, plain, reps, warm)
+            l_ms = time_ms(torch, library, reps, warm)
+            us = device_us(torch, kernel, name + "_kernel",
+                           reps=5 if large else 20)
+            b_ms, b_by, nbytes = _bound(B, n, K, A.element_size(), name)
+            r = dict(shape=[B, n, K], ms=k_ms,
+                     device_us_per_launch=us, plain_ms=p_ms, library_ms=l_ms,
+                     bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                     share_of_bound_events=b_ms / k_ms,
+                     share_of_bound_device=(b_ms * 1e3 / us) if us else None,
+                     max_abs_err=err)
+            results[name].append(r)
+            log(f"[kernels] {name} {(B, n, K)} f64: kernel "
+                f"{k_ms:.4f} ms/call, {us or float('nan'):.3f} us/launch "
+                "on the device; "
+                f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms; bound "
+                f"{b_ms * 1e3:.4f} us ({b_by}, {nbytes} B), share "
+                f"{r['share_of_bound_events'] * 100:.2f} % (events) / "
+                f"{(r['share_of_bound_device'] or 0) * 100:.2f} % (device); "
+                f"max abs err {err:.3e}")
+            del A, rhs, L
+            torch.cuda.empty_cache()
+
     entries = []
-    for name, err, nbytes, nops, key in (
-            ("cholesky_factor", err_f, bytes_f, flops_f, "factor"),
-            ("cholesky_solve_factored", err_s, bytes_s, flops_s, "solve")):
-        k_ms, p_ms, lib_ms = timings[key]
-        b_ms, b_by = bound(nbytes, nops)
+    for name, res in results.items():
+        main = res[0]
         entries.append(dict(
             name=name, route="cuda", source=KERNEL_SOURCE,
-            replaces=KERNEL_REPLACES, launches=None, max_abs_err=err,
-            ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, ok=True, kernel_ms=k_ms,
-            bound_us=b_ms * 1e3, shape=[B, n, n if key == "factor" else K],
-            dtype="float64", card=card))
-        log(f"[kernels] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"library {lib_ms:.4f} ms, bound {b_ms * 1e3:.4f} us "
-            f"({b_by}), max abs err {err:.3e}")
-    return entries
+            replaces=KERNEL_REPLACES, launches=None,
+            max_abs_err=main["max_abs_err"], ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=main["library_ms"],
+            device_us_per_launch=main["device_us_per_launch"],
+            shape=main["shape"], dtype="float64", card=card,
+            on_main_path=name != "cholesky_factor", shapes=res))
+    return entries, dict(ms=floor_ms, device_us_per_launch=floor_us)
 
 
 def _copy(oi):
@@ -227,7 +384,7 @@ def _copy(oi):
             for k, v in oi.items()}
 
 
-def phase_main_path(torch, entries):
+def phase_main_path(torch):
     from mrcal_tpu_torch import optimize, problems
     from mrcal_tpu_torch.ops import batched_cholesky as bc
     from mrcal_tpu_torch.optimize import spec_from_inputs
@@ -251,10 +408,9 @@ def phase_main_path(torch, entries):
         f"Nmeasurements {spec.Nmeasurements}, Nstate {spec.Nstate}")
     if (spec.Nmeasurements, spec.Nstate) != (32938, 518):
         fail("opencv8_1cam has the wrong shape")
-    kw = dict(update_threshold=1e-7, max_iterations=2000)
 
     t0 = time.perf_counter()
-    optimize(precision="f64", **kw, **_copy(oi))
+    optimize(precision="f64", **SOLVE_KW, **_copy(oi))
     torch.cuda.synchronize()
     log(f"[main] f64 warm-up solve {time.perf_counter() - t0:.3f} s")
 
@@ -262,7 +418,7 @@ def phase_main_path(torch, entries):
     torch.cuda.synchronize()
     bc.reset_launches()
     t0 = time.perf_counter()
-    stats = optimize(precision="f64", **kw, **oi_f64)
+    stats = optimize(precision="f64", **SOLVE_KW, **oi_f64)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(bc.launches)
@@ -277,41 +433,16 @@ def phase_main_path(torch, entries):
         fail("f64 solve: non-finite or misshapen output")
     if not abs(rms - F64_RMS) <= F64_RMS_TOL:
         fail(f"f64 rms {rms} is not within {F64_RMS_TOL} of {F64_RMS}")
-    for e in entries:
-        e["launches"] = launches[e["name"]]
-        if e["launches"] < niter:
-            fail(f"{e['name']} launched {e['launches']} times in "
-                 f"{niter} iterations")
-
-    # one iteration's two halves, timed apart on the solved state
-    from mrcal_tpu_torch.convert import from_reference
-    from mrcal_tpu_torch.optimize.solver import (build_normal_equations,
-                                                 schur_step)
-    spec_t, arrays, b = from_reference(oi_f64, stats["b_packed"],
-                                       device="cuda")
-    static_idx = dict(board=oi["indices_frame_camintrinsics_camextrinsics"],
-                      point=np.zeros((0, 3), np.int64))
-    ne_fn = build_normal_equations(spec_t, arrays, static_idx)
-    with torch.no_grad():
-        ne = ne_fn(b, arrays)
-        lam = torch.full((), 1e-4, dtype=b.dtype, device=b.device)
-        for label, fn in (("normal equations", lambda: ne_fn(b, arrays)),
-                          ("schur step", lambda: schur_step(ne, lam,
-                                                            spec_t))):
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(20):
-                fn()
-            torch.cuda.synchronize()
-            log(f"[main] f64 {label}: "
-                f"{(time.perf_counter() - t0) / 20 * 1e3:.3f} ms per call")
+    if not abs(niter - F64_NITER) <= F64_NITER_TOL:
+        fail(f"f64 solve took {niter} iterations, not {F64_NITER} +- "
+             f"{F64_NITER_TOL}")
+    check_launches_per_iteration("main", launches, niter)
+    halves = time_halves(torch, "main", oi_f64, stats)
 
     oi_mx = _copy(oi)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    stats_mx = optimize(precision="mixed", **kw, **oi_mx)
+    stats_mx = optimize(precision="mixed", **SOLVE_KW, **oi_mx)
     torch.cuda.synchronize()
     wall_mx = time.perf_counter() - t0
     rms_mx = stats_mx["rms_reproj_error__pixels"]
@@ -324,19 +455,104 @@ def phase_main_path(torch, entries):
     if not abs(rms_mx - F64_RMS) <= MIXED_RMS_TOL:
         fail(f"mixed rms {rms_mx} is not within {MIXED_RMS_TOL} of "
              f"{F64_RMS}")
-    profile = phase_profile(torch, oi, kw, wall, entries)
-    return dict(f64=dict(rms=rms, niterations=niter, wall_s=wall,
-                         ms_per_iteration=wall / niter * 1e3,
-                         launches=launches),
-                mixed=dict(rms=rms_mx, niterations_f32=n_f32,
-                           niterations_polish=n_pol, wall_s=wall_mx),
-                profile=profile)
+    return oi, dict(f64=dict(rms=rms, niterations=niter, wall_s=wall,
+                             ms_per_iteration=wall / niter * 1e3,
+                             launches=launches, **halves),
+                    mixed=dict(rms=rms_mx, niterations_f32=n_f32,
+                               niterations_polish=n_pol, wall_s=wall_mx))
 
 
-def phase_profile(torch, oi, kw, wall_unprofiled, entries):
+def check_launches_per_iteration(phase, launches, niter):
+    """The Schur step launches the fused kernel and the solve once per
+    iteration each, and the factor alone never."""
+    for name, want in (("cholesky_factor_solve", niter),
+                       ("cholesky_solve_factored", niter),
+                       ("cholesky_factor", 0)):
+        if launches[name] != want:
+            fail(f"[{phase}] {name} launched {launches[name]} times in "
+                 f"{niter} iterations; expected {want}")
+
+
+def time_halves(torch, phase, oi_solved, stats):
+    """One iteration's two halves, timed apart on the solved state."""
+    from mrcal_tpu_torch.convert import from_reference
+    from mrcal_tpu_torch.optimize.solver import (build_normal_equations,
+                                                 schur_step)
+    spec_t, arrays, b = from_reference(oi_solved, stats["b_packed"],
+                                       device="cuda")
+    static_idx = dict(
+        board=oi_solved["indices_frame_camintrinsics_camextrinsics"],
+        point=np.zeros((0, 3), np.int64))
+    ne_fn = build_normal_equations(spec_t, arrays, static_idx)
+    out = {}
+    with torch.no_grad():
+        ne = ne_fn(b, arrays)
+        lam = torch.full((), 1e-4, dtype=b.dtype, device=b.device)
+        for label, fn in (("normal_equations", lambda: ne_fn(b, arrays)),
+                          ("schur_step", lambda: schur_step(ne, lam,
+                                                            spec_t))):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            out[label + "_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+            log(f"[{phase}] f64 {label.replace('_', ' ')}: "
+                f"{out[label + '_ms']:.3f} ms per call")
+    return out
+
+
+def phase_rig16cam(torch):
+    """rig16cam in f64: the frame blocks' solve at K = 285."""
+    from mrcal_tpu_torch import optimize, problems
+    from mrcal_tpu_torch.ops import batched_cholesky as bc
+    from mrcal_tpu_torch.optimize import spec_from_inputs
+
+    t0 = time.perf_counter()
+    oi = problems.perturbed_oi(problems.rig16cam(), seed=1)
+    spec = spec_from_inputs(**oi)
+    log(f"[rig16cam] built in {time.perf_counter() - t0:.2f} s: "
+        f"Nmeasurements {spec.Nmeasurements}, Nstate {spec.Nstate}")
+    if (spec.Nmeasurements, spec.Nstate) != (251040, 524):
+        fail("rig16cam has the wrong shape")
+    t0 = time.perf_counter()
+    optimize(precision="f64", **SOLVE_KW, **_copy(oi))
+    torch.cuda.synchronize()
+    log(f"[rig16cam] f64 warm-up solve {time.perf_counter() - t0:.3f} s")
+
+    oi_f64 = _copy(oi)
+    torch.cuda.synchronize()
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    stats = optimize(precision="f64", **SOLVE_KW, **oi_f64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(bc.launches)
+    rms = stats["rms_reproj_error__pixels"]
+    niter = stats["niterations"]
+    log(f"[rig16cam] f64: rms {rms!r} px in {niter} iterations, "
+        f"{wall:.4f} s wall, {wall / niter * 1e3:.3f} ms/iteration, "
+        f"launches {launches}, phases {stats['time_s']}")
+    if not (np.isfinite(stats["x"]).all()
+            and stats["x"].shape == (spec.Nmeasurements,)):
+        fail("rig16cam f64 solve: non-finite or misshapen output")
+    if not abs(rms - RIG16_F64_RMS) <= RIG16_F64_RMS_TOL:
+        fail(f"rig16cam f64 rms {rms} is not within {RIG16_F64_RMS_TOL} "
+             f"of {RIG16_F64_RMS}")
+    check_launches_per_iteration("rig16cam", launches, niter)
+    halves = time_halves(torch, "rig16cam", oi_f64, stats)
+    return oi, dict(rms=rms, niterations=niter, wall_s=wall,
+                    ms_per_iteration=wall / niter * 1e3, launches=launches,
+                    **halves)
+
+
+def phase_profile(torch, phase, oi, wall_unprofiled):
     """Where the time of the f64 solve goes: one more solve under
-    torch.profiler; device time by kernel, launches per iteration, and
-    the device's busy share of the (unprofiled) timed solve."""
+    torch.profiler; device time by kernel, launches per iteration, the
+    device's busy share of the (unprofiled) timed solve, and the device
+    time per launch of each batched-Cholesky kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from mrcal_tpu_torch import optimize
@@ -345,7 +561,7 @@ def phase_profile(torch, oi, kw, wall_unprofiled, entries):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        stats = optimize(precision="f64", **kw, **_copy(oi))
+        stats = optimize(precision="f64", **SOLVE_KW, **_copy(oi))
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     niter = stats["niterations"]
@@ -353,8 +569,9 @@ def phase_profile(torch, oi, kw, wall_unprofiled, entries):
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     nlaunch = sum(e.count for e in kernels)
-    log(f"[profile] f64 solve: {niter} iterations, {wall * 1e3:.1f} ms "
-        f"wall under the profiler; {nlaunch} device kernels "
+    log(f"[profile] {phase} f64 solve: {niter} iterations, "
+        f"{wall * 1e3:.1f} ms wall under the profiler; {nlaunch} device "
+        "kernels "
         f"({nlaunch / niter:.0f} per iteration), {busy_ms:.2f} ms device "
         f"busy = {busy_ms / (wall_unprofiled * 1e3) * 100:.1f} % of the "
         f"unprofiled solve's wall")
@@ -365,18 +582,20 @@ def phase_profile(torch, oi, kw, wall_unprofiled, entries):
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
-    log("[profile] host self time by op:")
+    log(f"[profile] {phase} host self time by op:")
     for e in host[:12]:
         log(f"[profile]   {e.self_cpu_time_total / 1e3:8.3f} ms "
             f"{e.count:6d}x  {e.key[:100]}")
-    for entry in entries:
-        ev = [e for e in kernels if entry["name"] + "_kernel" in e.key]
-        entry["device_us_per_launch"] = (
-            sum(e.self_device_time_total for e in ev)
-            / max(sum(e.count for e in ev), 1))
+    per_launch = {}
+    for name in LAUNCHED:
+        ev = [e for e in kernels if name + "_kernel<" in e.key]
+        n = sum(e.count for e in ev)
+        per_launch[name] = (sum(e.self_device_time_total for e in ev) / n
+                            if n else None)
     return dict(iterations=niter, kernels=nlaunch,
                 kernels_per_iteration=nlaunch / niter, device_busy_ms=busy_ms,
-                device_busy_share=busy_ms / (wall_unprofiled * 1e3))
+                device_busy_share=busy_ms / (wall_unprofiled * 1e3)), \
+        per_launch
 
 
 def main():
@@ -387,9 +606,22 @@ def main():
     t_start = time.perf_counter()
     card, smi = phase_device(torch)
     phase_build()
-    entries = phase_kernels(torch, card)
-    main_path = phase_main_path(torch, entries)
+    phase_kernels(torch)
+    # the timed solves run before any profiler session, and the kernels'
+    # short profiler sessions before the whole-solve ones (after those,
+    # short sessions lost their device events on the card)
+    oi_main, main_path = phase_main_path(torch)
+    oi_rig, rig16 = phase_rig16cam(torch)
+    entries, main_path["launch_floor"] = time_kernels(torch, card)
+    main_path["profile"], per_launch = phase_profile(
+        torch, "main", oi_main, main_path["f64"]["wall_s"])
+    rig16["profile"], _ = phase_profile(torch, "rig16cam", oi_rig,
+                                        rig16["wall_s"])
+    for e in entries:
+        e["launches"] = main_path["f64"]["launches"][e["name"]]
+        e["device_us_per_launch_main_path"] = per_launch[e["name"]]
     log(f"[main] summary {json.dumps(main_path)}")
+    log(f"[rig16cam] summary {json.dumps(rig16)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -2,7 +2,9 @@
 
 Counterpart of ``mrcal_tpu/ops/batched_cholesky.py``.  The Schur step
 factors B independent n x n SPD blocks (n = 6 for frame poses, 3 for
-points) once per iteration and solves each against K right-hand sides.
+points) once per iteration and solves each against K right-hand sides,
+in one launch of ``cholesky_factor_solve`` (the TPU kernel's contract);
+it keeps L for the back-substitution, one ``cholesky_solve_factored``.
 
 Each wrapper takes a tensor on a CUDA card to the hand-written Hopper
 kernel in ``csrc/batched_cholesky.cu`` and a tensor on the CPU to the
@@ -21,7 +23,8 @@ import torch
 from . import _build
 
 # kernel launches, by wrapper
-launches = {"cholesky_factor": 0, "cholesky_solve_factored": 0}
+launches = {"cholesky_factor": 0, "cholesky_solve_factored": 0,
+            "cholesky_factor_solve": 0}
 
 
 def reset_launches():
@@ -72,6 +75,13 @@ def cholesky_solve_factored_plain(L, rhs):
     return torch.stack(x, dim=1)
 
 
+def cholesky_factor_solve_plain(A, rhs):
+    """cholesky_factor_plain, then cholesky_solve_factored_plain:
+    A (B, n, n), rhs (B, n, K) -> (L, x)."""
+    L = cholesky_factor_plain(A)
+    return L, cholesky_solve_factored_plain(L, rhs)
+
+
 # ----------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ----------------------------------------------------------------------------
@@ -94,6 +104,11 @@ def kernel_library():
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
         lib.mrcal_cholesky_solve_factored.restype = ctypes.c_int
+        lib.mrcal_cholesky_factor_solve.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.mrcal_cholesky_factor_solve.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -142,21 +157,26 @@ def cholesky_factor(A):
     return L
 
 
+def _check_pair(M, rhs, name):
+    """M (B, n, n) and rhs (B, n, K), of one dtype on one device."""
+    if M.dim() != 3 or rhs.dim() != 3 or M.shape[1] != M.shape[2] \
+            or rhs.shape[:2] != M.shape[:2]:
+        raise ValueError(f"{name}: shapes {tuple(M.shape)} and "
+                         f"{tuple(rhs.shape)}, expected (B, n, n) and "
+                         "(B, n, K)")
+    if M.dtype != rhs.dtype or M.device != rhs.device:
+        raise ValueError(f"{name}: the blocks and rhs differ in dtype or "
+                         "device")
+    if M.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for {M.device}")
+
+
 def cholesky_solve_factored(L, rhs):
     """Solve (L L^T) x = rhs for each block.  L (B, n, n) from
-    cholesky_factor, rhs (B, n, K) -> x (B, n, K)."""
-    if L.dim() != 3 or rhs.dim() != 3 or L.shape[1] != L.shape[2] \
-            or rhs.shape[:2] != L.shape[:2]:
-        raise ValueError(f"cholesky_solve_factored: shapes "
-                         f"{tuple(L.shape)} and {tuple(rhs.shape)}, expected "
-                         "(B, n, n) and (B, n, K)")
-    if L.dtype != rhs.dtype or L.device != rhs.device:
-        raise ValueError("cholesky_solve_factored: L and rhs differ in "
-                         "dtype or device")
+    cholesky_factor or cholesky_factor_solve, rhs (B, n, K) -> x (B, n, K)."""
+    _check_pair(L, rhs, "cholesky_solve_factored")
     if L.device.type == "cpu":
         return cholesky_solve_factored_plain(L, rhs)
-    if L.device.type != "cuda":
-        raise ValueError(f"cholesky_solve_factored: no kernel for {L.device}")
     B, n, K = rhs.shape
     _check_cuda(L, "cholesky_solve_factored", n)
     _check_cuda(rhs, "cholesky_solve_factored")
@@ -173,7 +193,32 @@ def cholesky_solve_factored(L, rhs):
     return x
 
 
+def cholesky_factor_solve(A, rhs):
+    """Factor each block and solve it against every column of rhs, in one
+    launch.  A (B, n, n) SPD, rhs (B, n, K) -> (L, x): L (B, n, n) lower
+    triangular (zeros above), for later cholesky_solve_factored calls, and
+    x (B, n, K)."""
+    _check_pair(A, rhs, "cholesky_factor_solve")
+    if A.device.type == "cpu":
+        return cholesky_factor_solve_plain(A, rhs)
+    B, n, K = rhs.shape
+    _check_cuda(A, "cholesky_factor_solve", n)
+    _check_cuda(rhs, "cholesky_factor_solve")
+    L = torch.empty_like(A)
+    x = torch.empty_like(rhs)
+    if B == 0:
+        return L, x
+    lib = kernel_library()
+    err = lib.mrcal_cholesky_factor_solve(
+        ctypes.c_void_p(A.data_ptr()), ctypes.c_void_p(rhs.data_ptr()),
+        ctypes.c_void_p(L.data_ptr()), ctypes.c_void_p(x.data_ptr()),
+        B, n, K, int(A.dtype == torch.float64), _stream())
+    _raise_on(err, "cholesky_factor_solve")
+    launches["cholesky_factor_solve"] += 1
+    return L, x
+
+
 def batched_cholesky_solve(A, rhs):
-    """solve(A, rhs) for a batch of small SPD blocks: factor, then solve.
+    """solve(A, rhs) for a batch of small SPD blocks, in one launch.
     A (B, n, n), rhs (B, n, K) -> (B, n, K)."""
-    return cholesky_solve_factored(cholesky_factor(A), rhs)
+    return cholesky_factor_solve(A, rhs)[1]

@@ -24,7 +24,8 @@ import torch
 
 from .._config import DEFAULT_DTYPE, resolve_device
 from ..lensmodels import project_core, require_ported
-from ..ops.batched_cholesky import cholesky_factor, cholesky_solve_factored
+from ..ops.batched_cholesky import (cholesky_factor_solve,
+                                   cholesky_solve_factored)
 from ..poseutils import _compose_rt2, _transform_point_rt
 from . import layout as _layout
 from .layout import ProblemSpec, spec_from_inputs
@@ -513,15 +514,13 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx):
 # Schur-reduced damped step
 # ----------------------------------------------------------------------------
 
-def _block_solve(A):
-    """Factor the batch of small SPD blocks A once; returns solve(rhs)
-    that reuses the factor.  On a CUDA tensor both run the hand-written
-    kernel."""
-    L = cholesky_factor(A)
-
-    def solve(rhs):
-        return cholesky_solve_factored(L, rhs.contiguous())
-    return solve
+def _block_eliminate(A, C, g):
+    """Factor the batch of small SPD blocks A and solve it against the
+    coupling block C (B, n, Nc) and the gradient g (B, n), in one kernel
+    launch on a CUDA tensor.  Returns (L, A^-1 C, A^-1 g); L serves the
+    back-substitution."""
+    L, X = cholesky_factor_solve(A, torch.cat([C, g[..., None]], dim=-1))
+    return L, X[..., :-1], X[..., -1]
 
 
 def _damping_diag(A):
@@ -563,9 +562,7 @@ def schur_step(ne, lam, spec: ProblemSpec):
         Af = _damped(ne["Hff"][:Nf], lam, dd_f)
         Cf = ne["Cf"][:Nf]                                 # (Nf,6,Nc)
         gf = ne["g_f"][:Nf]
-        solve_f = _block_solve(Af)
-        AinvC = solve_f(Cf)
-        Ainvg = solve_f(gf[..., None])[..., 0]
+        L_f, AinvC, Ainvg = _block_eliminate(Af, Cf, gf)
         H_red = H_red - torch.einsum("fic,fid->cd", Cf, AinvC)
         g_red = g_red - torch.einsum("fic,fi->c", Cf, Ainvg)
     if Npv:
@@ -573,9 +570,7 @@ def schur_step(ne, lam, spec: ProblemSpec):
         Ap = _damped(ne["Hpp"][:Npv], lam, dd_p)
         Cp = ne["Cp"][:Npv]
         gp = ne["g_p"][:Npv]
-        solve_p = _block_solve(Ap)
-        AinvCp = solve_p(Cp)
-        Ainvgp = solve_p(gp[..., None])[..., 0]
+        L_p, AinvCp, Ainvgp = _block_eliminate(Ap, Cp, gp)
         H_red = H_red - torch.einsum("fic,fid->cd", Cp, AinvCp)
         g_red = g_red - torch.einsum("fic,fi->c", Cp, Ainvgp)
 
@@ -590,13 +585,13 @@ def schur_step(ne, lam, spec: ProblemSpec):
     delta_f = ne["g_c"].new_zeros((max(Nf, 1), 6))
     if Nf:
         rhs = -(gf + torch.einsum("fic,c->fi", Cf, delta_c))
-        delta_f = solve_f(rhs[..., None])[..., 0]
+        delta_f = cholesky_solve_factored(L_f, rhs[..., None])[..., 0]
         pred = pred - torch.sum(gf * delta_f) \
             + lam * torch.sum(delta_f * (dd_f * delta_f))
     delta_p = ne["g_c"].new_zeros((max(Npv, 1), 3))
     if Npv:
         rhs = -(gp + torch.einsum("fic,c->fi", Cp, delta_c))
-        delta_p = solve_p(rhs[..., None])[..., 0]
+        delta_p = cholesky_solve_factored(L_p, rhs[..., None])[..., 0]
         pred = pred - torch.sum(gp * delta_p) \
             + lam * torch.sum(delta_p * (dd_p * delta_p))
     return delta_c, delta_f, delta_p, pred

@@ -4,8 +4,8 @@ Ports the JAX package's problem builders so that the port's own tools
 (``chip_smoke.py``) can make the bench problems: ``make_problem`` is
 ``__graft_entry__._make_problem``, ``make_perfect_observations`` is
 ``synthetic_data.make_perfect_observations`` (board and point branches),
-``perturbed_oi`` is ``bench._perturbed_oi`` and ``opencv8_1cam`` is the
-bench's first configuration.
+``perturbed_oi`` is ``bench._perturbed_oi``, and ``opencv8_1cam`` and
+``rig16cam`` are the bench's configurations of those names.
 
 The builders draw from the GLOBAL numpy RNG in exactly the JAX package's
 order (``np.random.seed(0)``, then ``randn`` for the frames, then ``randn``
@@ -32,6 +32,12 @@ _CPU = torch.device("cpu")
 # board (Nmeasurements 32938, Nstate 518)
 OPENCV8_1CAM = dict(Ncameras=1, Nframes=84, model="LENSMODEL_OPENCV8",
                     W=14, H=14)
+
+# bench.py's rig16cam configuration: a 4x4 rig of OPENCV8 cameras on a
+# 0.15 m grid, all facing the board, and 40 tame poses of a 14x14 board
+# (Nmeasurements 251040, Nstate 524)
+RIG16CAM = dict(Ncameras=16, Nframes=40, model="LENSMODEL_OPENCV8", W=14,
+                H=14)
 
 
 def make_perfect_observations(optimization_inputs, *,
@@ -140,5 +146,28 @@ def opencv8_1cam():
     """The bench's opencv8_1cam optimization_inputs (outlier rejection
     off, as the bench runs it), unperturbed."""
     oi = make_problem(**OPENCV8_1CAM, device=_CPU)[0]
+    oi["do_apply_outlier_rejection"] = False
+    return oi
+
+
+def _rig16_frames(Nframes):
+    """Board poses visible to the whole 4x4 rig (bench._rig16_frames):
+    mild tilts, 1.2-1.6 m out, a modest lateral sweep."""
+    rng = np.random.default_rng(7)
+    return np.concatenate([
+        rng.normal(0.0, 0.1, (Nframes, 3)),
+        np.array([[0.25, 0.2, 1.4]]) + rng.normal(0.0, 0.12, (Nframes, 3)),
+    ], axis=1)
+
+
+def rig16cam():
+    """The bench's rig16cam optimization_inputs (outlier rejection off),
+    unperturbed."""
+    ext = np.array([[0.01 * (i % 4), 0.01 * (i // 4), 0.0,
+                     -0.15 * (i % 4), -0.15 * (i // 4), 0.0]
+                    for i in range(1, 16)])
+    oi = make_problem(**RIG16CAM, extrinsics_rt_fromref=ext,
+                      frames_rt_toref=_rig16_frames(RIG16CAM["Nframes"]),
+                      device=_CPU)[0]
     oi["do_apply_outlier_rejection"] = False
     return oi

@@ -85,6 +85,51 @@ def test_schur_step_matches_jax(problems, which):
         _close(a.numpy(), b, 1e-9)
 
 
+def test_schur_step_matches_jax_past_a_warp_of_columns():
+    """On a 4-camera problem the frame blocks are solved against the
+    Nc = 68 columns of the coupling block and the gradient in one launch,
+    more columns than a warp has lanes.  Both Schur steps take the port's
+    normal equations."""
+    from mrcal_tpu.optimize.layout import spec_from_inputs
+    oi, tspec, tarrays, tb0 = tproblems.make_problem(Ncameras=4,
+                                                     device="cpu")
+    static_idx = dict(board=oi["indices_frame_camintrinsics_camextrinsics"],
+                      point=np.zeros((0, 3), np.int64))
+    ne = tsolver.build_normal_equations(tspec, tarrays, static_idx)(
+        tb0, tarrays)
+    assert ne["Cf"].shape[-1] == 68
+    out_j = jax.jit(partial(jsolver.schur_step,
+                            spec=spec_from_inputs(**oi)))(
+        {k: jnp.asarray(v.numpy()) for k, v in ne.items()}, 1e-4)
+    out_t = tsolver.schur_step(ne, 1e-4, tspec)
+    for a, b in zip(out_t, out_j):
+        _close(a.numpy(), b, 1e-10)
+
+
+def test_block_eliminate_splits_coupling_and_gradient():
+    """The Schur step's one fused solve per block type gives the factor,
+    A^-1 C and A^-1 g, as numpy's solves do."""
+    rng = np.random.default_rng(3)
+    M = rng.normal(size=(7, 6, 6))
+    A = np.einsum("bij,bkj->bik", M, M) + 6 * np.eye(6)
+    C, g = rng.normal(size=(7, 6, 5)), rng.normal(size=(7, 6))
+    L, AinvC, Ainvg = tsolver._block_eliminate(
+        torch.as_tensor(A), torch.as_tensor(C), torch.as_tensor(g))
+    _close(L.numpy(), np.linalg.cholesky(A), 1e-12)
+    _close(AinvC.numpy(), np.linalg.solve(A, C), 1e-12)
+    _close(Ainvg.numpy(), np.linalg.solve(A, g[..., None])[..., 0], 1e-12)
+
+
+def test_rig16cam_is_the_bench_configuration():
+    """problems.rig16cam() has the bench's board poses and shape."""
+    import bench
+    oi = tproblems.rig16cam()
+    spec = tsolver.spec_from_inputs(**oi)
+    assert (spec.Nmeasurements, spec.Nstate) == (251040, 524)
+    assert np.array_equal(oi["frames_rt_toref"], bench._rig16_frames(40))
+    assert oi["do_apply_outlier_rejection"] is False
+
+
 def test_one_lm_step_matches_entry(problems):
     """One LM step as __graft_entry__.entry() takes it: normal equations
     at b0, schur_step at lambda=1e-4, b0 + _delta_to_b."""
