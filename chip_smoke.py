@@ -16,8 +16,8 @@ nonzero:
    the factor-then-solve checks (f64 and f32, n=6 and n=3, a ragged
    batch, a non-SPD block, a cond-1e6 f32 batch), then the fused
    cholesky_factor_solve and the solve at the Schur step's shapes
-   (opencv8_1cam, rig16cam), a ragged B, K past a warp, B = 0 and a
-   large-B sweep, f64 and f32.
+   (opencv8_1cam, opencv8_4cam, rig16cam), a ragged B, K past a warp,
+   B = 0 and a large-B sweep, f64 and f32.
 4. main path: the bench's opencv8_1cam calibration (LENSMODEL_OPENCV8, one
    camera, 84 frames of a 14x14 board; 32938 measurements, 518 states),
    perturbed as bench._perturbed_oi(seed=1), solved by optimize() on the
@@ -29,12 +29,33 @@ nonzero:
    251040 measurements, 524 states; the frame blocks are solved against
    K = 285 columns), warm-up, then a timed f64 solve held to the JAX
    package's f64 rms, 0.2990332534 px.
+   sfm_triangulated: the bench's triangulated-point SfM (8 PINHOLE
+   cameras, 492 points seen in 3527 observations; 11443 measurements, 42
+   states: the extrinsics only), warm-up, then a timed f64 solve held to
+   the JAX package's f64 rms, 0.00014919536101374561 px (relative 1e-6),
+   in 6 +- 3 iterations (the port's own count; the JAX package takes 14,
+   see PERF.md).  The points are not state, so no batched-Cholesky kernel
+   may launch.
+   opencv8_4cam: the bench's four-camera board calibration (84 frames;
+   131752 measurements, 572 states; the frame blocks are solved against
+   K = 69 columns), warm-up, then a timed f64 solve held to the JAX
+   package's f64 rms, 0.29864967030878176 px +- 1e-6, in 32 +- 3
+   iterations, one launch of each path kernel per iteration.
+   optimizer_callback: on the card and on the CPU for sfm_triangulated
+   and opencv8_1cam; the sparse Jacobians' shapes and stored entries
+   agree, and x and J agree to 1e-12 of their largest entry.  Then
+   optimize(check_gradient=True) on a small board problem, card against
+   CPU.
+   triangulate: the six two-view wrappers (with their gradients),
+   rotate_point_R and unproject_core (PINHOLE, OPENCV8) on the card, the
+   wrappers' default device, against the CPU, to 1e-12.
 6. kernel times: each kernel at the shapes of phase 3 in f64 (CUDA
    events, and device time per launch from torch.profiler) beside its
    plain version, the PyTorch library call and its bound, and beside the
    launch floor (a one-element torch.add).
-7. profile: one more f64 solve of each under torch.profiler (device time
-   by kernel, launches per iteration, busy share).
+7. profile: one more f64 solve of each configuration under
+   torch.profiler (device time by kernel, launches per iteration, busy
+   share).
 8. the last line: {"ok": true, "device": {...}}.
 
 The timed solves come before any profiler session or kernel timing, so
@@ -54,12 +75,33 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the JAX package's converged rms on this problem (f64, CPU backend)
 F64_RMS = 0.2958451838
 F64_RMS_TOL = 1e-6
-F64_NITER, F64_NITER_TOL = 32, 3     # the JAX package's count
+F64_NITER_RANGE = (32 - 3, 32 + 3)    # the JAX package's count, 32
 MIXED_RMS_TOL = 1e-5
 # rig16cam: the JAX package's converged f64 rms on the CPU (64 iterations):
 # JAX_PLATFORMS=cpu python -c "import bench, mrcal_tpu; ..." (PERF.md)
 RIG16_F64_RMS = 0.2990332534279465
 RIG16_F64_RMS_TOL = 1e-6
+# sfm_triangulated and opencv8_4cam: the JAX package's converged f64 rms
+# and iterations on the CPU (PERF.md section 2 gives the command)
+SFM_F64_RMS = 0.00014919536101374561
+SFM_F64_RMS_REL_TOL = 1e-6
+# the port's own count: 6 on the CPU at 1-8 threads and on the card
+# (PERF.md).  The JAX package takes 14: its small-angle measurement
+# cancels, so its stopping point follows roundoff (ROADMAP, standing
+# deviations)
+SFM_NITER_RANGE = (6 - 3, 6 + 3)
+CAM4_F64_RMS = 0.29864967030878176
+CAM4_F64_RMS_TOL = 1e-6
+CAM4_NITER_RANGE = (32 - 3, 32 + 3)
+# optimizer_callback on the card against the CPU: x and J to this much of
+# their largest entry
+CALLBACK_REL_TOL = 1e-12
+# check_gradient's worst relative error, card against CPU: the finite
+# differences' roundoff, eps |x| / FD_STEP, is ~2e-11 of a pixel here
+CHECK_GRADIENT_ABS_TOL = 1e-10
+# the two-view wrappers, rotate_point_R and unproject_core on the card
+# against the CPU, to this much of each output's largest entry
+TRIANGULATE_REL_TOL = 1e-12
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 # non-tensor-core FP64 / FP32 rates
@@ -224,10 +266,12 @@ def phase_kernels(torch):
 # 285), a ragged B with K past a warp, B = 0, and the large-B sweep (K = 0
 # is the fused entry with no right-hand side)
 MAIN_SHAPES = [(84, 6, 15), (84, 6, 1)]
+CAM4_SHAPES = [(84, 6, 69)]                  # K = 4*12 + 3*6 + 2 + 1
 RIG16_SHAPES = [(40, 6, 285), (40, 6, 1)]
 LARGE_SHAPES = [(1 << 20, 3, 4), (1 << 18, 6, 15), (1 << 20, 3, 1),
                 (1 << 18, 6, 1)]
-CHECK_SHAPES = (MAIN_SHAPES + RIG16_SHAPES + [(131, 6, 33), (131, 3, 4),
+CHECK_SHAPES = (MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
+                + [(131, 6, 33), (131, 3, 4),
                                                (0, 6, 15), (70000, 6, 0)]
                 + LARGE_SHAPES)
 
@@ -309,8 +353,10 @@ def time_kernels(torch, card):
         "device time per launch (profiler)")
 
     shapes = dict(
-        cholesky_factor_solve=MAIN_SHAPES + RIG16_SHAPES + LARGE_SHAPES,
-        cholesky_solve_factored=MAIN_SHAPES + RIG16_SHAPES + LARGE_SHAPES,
+        cholesky_factor_solve=(MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
+                               + LARGE_SHAPES),
+        cholesky_solve_factored=(MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
+                                 + LARGE_SHAPES),
         cholesky_factor=[(84, 6, 0), (1 << 20, 3, 0), (1 << 18, 6, 0)])
     results = {name: [] for name in shapes}
     for name, todo in shapes.items():
@@ -386,8 +432,6 @@ def _copy(oi):
 
 def phase_main_path(torch):
     from mrcal_tpu_torch import optimize, problems
-    from mrcal_tpu_torch.ops import batched_cholesky as bc
-    from mrcal_tpu_torch.optimize import spec_from_inputs
 
     # small input first: the card's solve against the CPU's
     oi_small = problems.make_problem(device="cpu")[0]
@@ -401,43 +445,9 @@ def phase_main_path(torch):
     if not d <= 1e-10 * s_cpu["rms_reproj_error__pixels"]:
         fail(f"small problem: card and CPU rms differ by {d}")
 
-    t0 = time.perf_counter()
-    oi = problems.perturbed_oi(problems.opencv8_1cam(), seed=1)
-    spec = spec_from_inputs(**oi)
-    log(f"[main] opencv8_1cam built in {time.perf_counter() - t0:.2f} s: "
-        f"Nmeasurements {spec.Nmeasurements}, Nstate {spec.Nstate}")
-    if (spec.Nmeasurements, spec.Nstate) != (32938, 518):
-        fail("opencv8_1cam has the wrong shape")
-
-    t0 = time.perf_counter()
-    optimize(precision="f64", **SOLVE_KW, **_copy(oi))
-    torch.cuda.synchronize()
-    log(f"[main] f64 warm-up solve {time.perf_counter() - t0:.3f} s")
-
-    oi_f64 = _copy(oi)
-    torch.cuda.synchronize()
-    bc.reset_launches()
-    t0 = time.perf_counter()
-    stats = optimize(precision="f64", **SOLVE_KW, **oi_f64)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(bc.launches)
-    rms = stats["rms_reproj_error__pixels"]
-    niter = stats["niterations"]
-    log(f"[main] f64: rms {rms!r} px in {niter} iterations, {wall:.4f} s "
-        f"wall, {wall / niter * 1e3:.3f} ms/iteration, launches {launches}, "
-        f"phases {stats['time_s']}")
-    if not (np.isfinite(stats["x"]).all()
-            and stats["x"].shape == (spec.Nmeasurements,)
-            and np.isfinite(oi_f64["intrinsics"]).all()):
-        fail("f64 solve: non-finite or misshapen output")
-    if not abs(rms - F64_RMS) <= F64_RMS_TOL:
-        fail(f"f64 rms {rms} is not within {F64_RMS_TOL} of {F64_RMS}")
-    if not abs(niter - F64_NITER) <= F64_NITER_TOL:
-        fail(f"f64 solve took {niter} iterations, not {F64_NITER} +- "
-             f"{F64_NITER_TOL}")
-    check_launches_per_iteration("main", launches, niter)
-    halves = time_halves(torch, "main", oi_f64, stats)
+    oi, f64 = timed_solve(
+        torch, "main", problems.perturbed_oi(problems.opencv8_1cam(), seed=1),
+        (32938, 518), F64_RMS, F64_RMS_TOL, F64_NITER_RANGE)
 
     oi_mx = _copy(oi)
     torch.cuda.synchronize()
@@ -455,9 +465,7 @@ def phase_main_path(torch):
     if not abs(rms_mx - F64_RMS) <= MIXED_RMS_TOL:
         fail(f"mixed rms {rms_mx} is not within {MIXED_RMS_TOL} of "
              f"{F64_RMS}")
-    return oi, dict(f64=dict(rms=rms, niterations=niter, wall_s=wall,
-                             ms_per_iteration=wall / niter * 1e3,
-                             launches=launches, **halves),
+    return oi, dict(f64=f64,
                     mixed=dict(rms=rms_mx, niterations_f32=n_f32,
                                niterations_polish=n_pol, wall_s=wall_mx))
 
@@ -480,9 +488,12 @@ def time_halves(torch, phase, oi_solved, stats):
                                                  schur_step)
     spec_t, arrays, b = from_reference(oi_solved, stats["b_packed"],
                                        device="cuda")
-    static_idx = dict(
-        board=oi_solved["indices_frame_camintrinsics_camextrinsics"],
-        point=np.zeros((0, 3), np.int64))
+    static_idx = {
+        key: (np.zeros((0, 3), np.int64) if oi_solved.get(name) is None
+              else oi_solved[name])
+        for key, name in (
+            ("board", "indices_frame_camintrinsics_camextrinsics"),
+            ("point", "indices_point_camintrinsics_camextrinsics"))}
     ne_fn = build_normal_equations(spec_t, arrays, static_idx)
     out = {}
     with torch.no_grad():
@@ -504,23 +515,24 @@ def time_halves(torch, phase, oi_solved, stats):
     return out
 
 
-def phase_rig16cam(torch):
-    """rig16cam in f64: the frame blocks' solve at K = 285."""
-    from mrcal_tpu_torch import optimize, problems
+def timed_solve(torch, phase, oi, shape, rms_ref, rms_tol, niter_range=None,
+                launches_per_iteration=True):
+    """A bench configuration in f64: a warm-up solve, then a timed solve
+    with the kernels' launch counts, held to the JAX package's rms (and
+    iteration count), and its two halves timed apart."""
+    from mrcal_tpu_torch import optimize
     from mrcal_tpu_torch.ops import batched_cholesky as bc
     from mrcal_tpu_torch.optimize import spec_from_inputs
 
-    t0 = time.perf_counter()
-    oi = problems.perturbed_oi(problems.rig16cam(), seed=1)
     spec = spec_from_inputs(**oi)
-    log(f"[rig16cam] built in {time.perf_counter() - t0:.2f} s: "
-        f"Nmeasurements {spec.Nmeasurements}, Nstate {spec.Nstate}")
-    if (spec.Nmeasurements, spec.Nstate) != (251040, 524):
-        fail("rig16cam has the wrong shape")
+    log(f"[{phase}] Nmeasurements {spec.Nmeasurements}, Nstate "
+        f"{spec.Nstate}")
+    if (spec.Nmeasurements, spec.Nstate) != shape:
+        fail(f"{phase} has the wrong shape")
     t0 = time.perf_counter()
     optimize(precision="f64", **SOLVE_KW, **_copy(oi))
     torch.cuda.synchronize()
-    log(f"[rig16cam] f64 warm-up solve {time.perf_counter() - t0:.3f} s")
+    log(f"[{phase}] f64 warm-up solve {time.perf_counter() - t0:.3f} s")
 
     oi_f64 = _copy(oi)
     torch.cuda.synchronize()
@@ -532,20 +544,174 @@ def phase_rig16cam(torch):
     launches = dict(bc.launches)
     rms = stats["rms_reproj_error__pixels"]
     niter = stats["niterations"]
-    log(f"[rig16cam] f64: rms {rms!r} px in {niter} iterations, "
+    log(f"[{phase}] f64: rms {rms!r} px in {niter} iterations, "
         f"{wall:.4f} s wall, {wall / niter * 1e3:.3f} ms/iteration, "
         f"launches {launches}, phases {stats['time_s']}")
     if not (np.isfinite(stats["x"]).all()
-            and stats["x"].shape == (spec.Nmeasurements,)):
-        fail("rig16cam f64 solve: non-finite or misshapen output")
-    if not abs(rms - RIG16_F64_RMS) <= RIG16_F64_RMS_TOL:
-        fail(f"rig16cam f64 rms {rms} is not within {RIG16_F64_RMS_TOL} "
-             f"of {RIG16_F64_RMS}")
-    check_launches_per_iteration("rig16cam", launches, niter)
-    halves = time_halves(torch, "rig16cam", oi_f64, stats)
+            and stats["x"].shape == (spec.Nmeasurements,)
+            and np.isfinite(oi_f64["intrinsics"]).all()):
+        fail(f"{phase} f64 solve: non-finite or misshapen output")
+    if not abs(rms - rms_ref) <= rms_tol:
+        fail(f"{phase} f64 rms {rms!r} is not within {rms_tol} of "
+             f"{rms_ref!r}")
+    if niter_range is not None and \
+            not niter_range[0] <= niter <= niter_range[1]:
+        fail(f"{phase} f64 solve took {niter} iterations, not "
+             f"{niter_range[0]}-{niter_range[1]}")
+    if launches_per_iteration:
+        check_launches_per_iteration(phase, launches, niter)
+    elif any(launches.values()):
+        fail(f"[{phase}] launched batched-Cholesky kernels {launches}; "
+             "this path has no frame or point blocks")
+    halves = time_halves(torch, phase, oi_f64, stats)
     return oi, dict(rms=rms, niterations=niter, wall_s=wall,
                     ms_per_iteration=wall / niter * 1e3, launches=launches,
                     **halves)
+
+
+def phase_rig16cam(torch):
+    """rig16cam in f64: the frame blocks' solve at K = 285."""
+    from mrcal_tpu_torch import problems
+    return timed_solve(torch, "rig16cam",
+                       problems.perturbed_oi(problems.rig16cam(), seed=1),
+                       (251040, 524), RIG16_F64_RMS, RIG16_F64_RMS_TOL)
+
+
+def phase_sfm(torch):
+    """sfm_triangulated in f64: the triangulated pairs' rows, the dense
+    42x42 reduced system, and no block kernel."""
+    from mrcal_tpu_torch import problems
+    return timed_solve(
+        torch, "sfm_triangulated",
+        problems.perturbed_oi(problems.sfm_triangulated(), seed=1),
+        (11443, 42), SFM_F64_RMS, SFM_F64_RMS * SFM_F64_RMS_REL_TOL,
+        SFM_NITER_RANGE, launches_per_iteration=False)
+
+
+def phase_4cam(torch):
+    """opencv8_4cam in f64: the frame blocks' solve at K = 69."""
+    from mrcal_tpu_torch import problems
+    return timed_solve(
+        torch, "opencv8_4cam",
+        problems.perturbed_oi(problems.opencv8_4cam(), seed=1),
+        (131752, 572), CAM4_F64_RMS, CAM4_F64_RMS_TOL, CAM4_NITER_RANGE)
+
+
+def phase_callback(torch, phase, oi):
+    """optimizer_callback on the card against the CPU: the same sparse
+    structure, and x and J to CALLBACK_REL_TOL of their largest entry."""
+    from mrcal_tpu_torch import optimizer_callback
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b_g, x_g, J_g = optimizer_callback(**_copy(oi))
+    wall = time.perf_counter() - t0
+    b_c, x_c, J_c = optimizer_callback(device="cpu", **_copy(oi))
+    err_b = float(np.abs(b_g - b_c).max() / np.abs(b_c).max())
+    err_x = float(np.abs(x_g - x_c).max() / np.abs(x_c).max())
+    same = (J_g.shape == J_c.shape and J_g.nnz == J_c.nnz
+            and np.array_equal(J_g.indptr, J_c.indptr)
+            and np.array_equal(J_g.indices, J_c.indices))
+    err_J = (float(np.abs(J_g.data - J_c.data).max()
+                   / np.abs(J_c.data).max()) if same else float("nan"))
+    log(f"[callback] {phase}: J {J_g.shape}, {J_g.nnz} stored entries "
+        f"(CPU {J_c.shape}, {J_c.nnz}), card {wall:.3f} s; card vs CPU: b "
+        f"{err_b:.3e}, x {err_x:.3e}, J {err_J:.3e} of the largest entry "
+        f"(tol {CALLBACK_REL_TOL:g})")
+    if not same:
+        fail(f"optimizer_callback {phase}: the card's sparse structure "
+             "differs from the CPU's")
+    if not (err_b <= CALLBACK_REL_TOL and err_x <= CALLBACK_REL_TOL
+            and err_J <= CALLBACK_REL_TOL):
+        fail(f"optimizer_callback {phase}: card and CPU disagree")
+    return dict(shape=list(J_g.shape), nnz=int(J_g.nnz), wall_s=wall,
+                rel_err_b=err_b, rel_err_x=err_x, rel_err_J=err_J)
+
+
+def phase_check_gradient(torch):
+    """optimize(check_gradient=True) on the card against the CPU, on a
+    small board problem: the same columns checked, and the same worst
+    relative error within CHECK_GRADIENT_ABS_TOL."""
+    from mrcal_tpu_torch import optimize, problems
+    oi = problems.make_problem(Ncameras=2, Nframes=4, W=4, H=3,
+                               device="cpu")[0]
+    t0 = time.perf_counter()
+    s_g = optimize(check_gradient=True, **_copy(oi))
+    wall = time.perf_counter() - t0
+    s_c = optimize(check_gradient=True, device="cpu", **_copy(oi))
+    d = abs(s_g["worst_relative_error"] - s_c["worst_relative_error"])
+    log(f"[callback] check_gradient on the card: {s_g['ncols_checked']} "
+        f"columns in {wall:.3f} s, worst relative error "
+        f"{s_g['worst_relative_error']:.6e} (column {s_g['worst_ivar']}); "
+        f"CPU {s_c['worst_relative_error']:.6e} (column "
+        f"{s_c['worst_ivar']}); difference {d:.3e} (tol "
+        f"{CHECK_GRADIENT_ABS_TOL:g})")
+    if not (s_g["ncols_checked"] == s_c["ncols_checked"]
+            and s_g["worst_relative_error"] < 1e-5
+            and d <= CHECK_GRADIENT_ABS_TOL):
+        fail("check_gradient: the card's report differs from the CPU's")
+    return dict(ncols_checked=s_g["ncols_checked"], wall_s=wall,
+                worst_relative_error=s_g["worst_relative_error"],
+                worst_relative_error_cpu=s_c["worst_relative_error"])
+
+
+def phase_triangulate(torch):
+    """The public two-view wrappers (with get_gradients), rotate_point_R
+    and unproject_core on the card against the CPU.  The wrappers get
+    numpy arrays and no device: the card is their default."""
+    from mrcal_tpu_torch import (R_from_r, lensmodels, rotate_point_R,
+                                 triangulation)
+    rng = np.random.default_rng(4)
+    N = 4096
+    p = rng.normal(size=(N, 3)) * [2.0, 1.0, 1.0] + [0.0, 0.0, 8.0]
+    t01 = np.array([1.0, 0.1, -0.2])
+    R01 = R_from_r(torch.tensor([0.02, -0.1, 0.03],
+                                dtype=torch.float64)).numpy()
+    v0 = p + rng.normal(size=(N, 3)) * 0.01
+    v1 = p - t01 + rng.normal(size=(N, 3)) * 0.01
+    v1[0] = -v1[0]                         # diverging rays: (0,0,0)
+    v1_local = v1 @ R01
+    Rt01 = np.concatenate([R01, t01[None]], axis=0)
+    calls = {f"triangulate_{m}": (getattr(triangulation, "triangulate_" + m),
+                                  (v0, v1, t01), dict(get_gradients=True))
+             for m in ("geometric", "leecivera_l1", "leecivera_linf",
+                       "leecivera_mid2", "leecivera_wmid2")}
+    calls["triangulate_lindstrom"] = (triangulation.triangulate_lindstrom,
+                                      (v0, v1_local, Rt01),
+                                      dict(get_gradients=True))
+    calls["triangulate_leecivera_mid2 v_are_local"] = (
+        triangulation.triangulate_leecivera_mid2, (v0, v1_local),
+        dict(v_are_local=True, Rt01=Rt01))
+    calls["rotate_point_R"] = (rotate_point_R, (R01, v1_local),
+                               dict(get_gradients=True))
+    worst = {}
+    for name, (fn, args, kw) in calls.items():
+        out_g = fn(*args, **kw)
+        out_c = fn(*args, device="cpu", **kw)
+        if not isinstance(out_g, tuple):
+            out_g, out_c = (out_g,), (out_c,)
+        if not all(g.device.type == "cuda" for g in out_g):
+            fail(f"[triangulate] {name} did not run on the card")
+        errs = [rel_err(g.cpu(), c) for g, c in zip(out_g, out_c)]
+        if not all(torch.isfinite(g).all() for g in out_g):
+            fail(f"[triangulate] {name}: non-finite output on the card")
+        worst[name] = max(errs)
+    for model, intr in (("LENSMODEL_PINHOLE", [800., 780., 799.5, 499.5]),
+                        ("LENSMODEL_OPENCV8",
+                         [800., 780., 799.5, 499.5, -0.05, 0.02, 1e-3,
+                          -1e-3, 5e-3, 1e-3, -1e-3, 1e-3])):
+        intr = torch.tensor(intr, dtype=torch.float64)
+        q = lensmodels.project_core(torch.as_tensor(p), intr, model)
+        v_c = lensmodels.unproject_core(q, intr, model)
+        v_g = lensmodels.unproject_core(q.cuda(), intr.cuda(), model)
+        if v_g.device.type != "cuda" or not torch.isfinite(v_g).all():
+            fail(f"[triangulate] unproject_core {model} on the card")
+        worst[f"unproject_core {model}"] = rel_err(v_g.cpu(), v_c)
+    for name, e in worst.items():
+        log(f"[triangulate] {name}: card vs CPU {e:.3e} of the largest "
+            f"entry (tol {TRIANGULATE_REL_TOL:g})")
+    if not all(e <= TRIANGULATE_REL_TOL for e in worst.values()):
+        fail("[triangulate] the card and the CPU disagree")
+    return worst
 
 
 def phase_profile(torch, phase, oi, wall_unprofiled):
@@ -604,24 +770,49 @@ def main():
     sys.path.insert(0, ROOT)
     import torch
     t_start = time.perf_counter()
+
+    def stamp(phase):
+        log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
+
     card, smi = phase_device(torch)
     phase_build()
     phase_kernels(torch)
+    stamp("kernel checks")
     # the timed solves run before any profiler session, and the kernels'
     # short profiler sessions before the whole-solve ones (after those,
     # short sessions lost their device events on the card)
     oi_main, main_path = phase_main_path(torch)
-    oi_rig, rig16 = phase_rig16cam(torch)
+    stamp("main")
+    others = {}
+    for name, phase in (("rig16cam", phase_rig16cam),
+                        ("sfm_triangulated", phase_sfm),
+                        ("opencv8_4cam", phase_4cam)):
+        others[name] = phase(torch)
+        stamp(name)
+    callbacks = {name: phase_callback(torch, name, oi) for name, oi in (
+        ("sfm_triangulated", others["sfm_triangulated"][0]),
+        ("opencv8_1cam", oi_main))}
+    callbacks["check_gradient"] = phase_check_gradient(torch)
+    stamp("callbacks")
+    triangulate = phase_triangulate(torch)
+    stamp("triangulate")
     entries, main_path["launch_floor"] = time_kernels(torch, card)
+    stamp("kernel times")
     main_path["profile"], per_launch = phase_profile(
         torch, "main", oi_main, main_path["f64"]["wall_s"])
-    rig16["profile"], _ = phase_profile(torch, "rig16cam", oi_rig,
-                                        rig16["wall_s"])
+    stamp("main profile")
+    for name, (oi, summary) in others.items():
+        summary["profile"], _ = phase_profile(torch, name, oi,
+                                              summary["wall_s"])
+        stamp(f"{name} profile")
     for e in entries:
         e["launches"] = main_path["f64"]["launches"][e["name"]]
         e["device_us_per_launch_main_path"] = per_launch[e["name"]]
     log(f"[main] summary {json.dumps(main_path)}")
-    log(f"[rig16cam] summary {json.dumps(rig16)}")
+    for name, (_, summary) in others.items():
+        log(f"[{name}] summary {json.dumps(summary)}")
+    log(f"[callback] summary {json.dumps(callbacks)}")
+    log(f"[triangulate] summary {json.dumps(triangulate)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -1,10 +1,12 @@
 """mrcal_tpu_torch — the PyTorch/CUDA port of mrcal_tpu.
 
 A second package beside the JAX one, held against it number for number.
-This slice covers one parametric chessboard (and discrete-point)
-calibration solved end to end: layout and packing, the projection chain,
-the normal equations, the Schur step with its hand-written Hopper
-batched-Cholesky kernel (``ops/``), the LM loop and ``optimize()``.
+It covers parametric chessboard, discrete-point and triangulated-point
+calibrations solved end to end: layout and packing, the projection chain
+and its inverse, two-view triangulation, the normal equations, the Schur
+step with its hand-written Hopper batched-Cholesky kernel (``ops/``), the
+LM loop, ``optimize()`` (with ``check_gradient``) and
+``optimizer_callback`` with its sparse Jacobian.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.  Everything is float64 unless a caller asks for float32.
@@ -16,13 +18,24 @@ from .lensmodels import (  # noqa: F401
     lensmodel_metadata_and_config,
     lensmodel_num_params,
     project_core,
+    unproject_core,
 )
-from .optimize import optimize, optimize_batch  # noqa: F401
+from .optimize import (  # noqa: F401
+    optimize, optimize_batch, optimizer_callback)
 from .poseutils import (  # noqa: F401
     skew_symmetric,
+    rotate_point_R,
     _R_from_r as R_from_r,
     _compose_r as compose_r,
     _rotate_point_r as rotate_point_r,
     _compose_rt2 as compose_rt,
     _transform_point_rt as transform_point_rt,
+)
+from .triangulation import (  # noqa: F401
+    triangulate_geometric,
+    triangulate_leecivera_l1,
+    triangulate_leecivera_linf,
+    triangulate_leecivera_mid2,
+    triangulate_leecivera_wmid2,
+    triangulate_lindstrom,
 )

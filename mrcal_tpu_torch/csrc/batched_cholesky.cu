@@ -38,8 +38,11 @@
 //   memory stays busy.  With K < n/2 (the factor alone, a K = 1 solve) only
 //   some lanes of a group have a column, and an entry-major tile staged
 //   with cp.async, one thread per block, moved the same bytes faster on the
-//   card.  No path of the port drives that many blocks yet; such a regime
-//   belongs with the triangulated-point path, measured on its shapes.
+//   card.  The n=3 blocks come from discrete points in the state
+//   (observations_point with variable points); triangulated points are not
+//   state and add no blocks.  No bench configuration drives the n=3 blocks
+//   at scale yet; such a regime belongs with the first one that does,
+//   measured on its shapes.
 //
 // The kernels compute what the plain version computes, in its order:
 // each entry's products are subtracted in ascending k, with IEEE sqrt and

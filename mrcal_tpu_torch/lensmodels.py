@@ -5,17 +5,21 @@ reference's: every model with a core is ``[fx, fy, cx, cy, <distortions>]``
 and the OPENCV models keep OpenCV's order k1,k2,p1,p2[,k3[,k4,k5,k6
 [,s1..s4]]].  Each projection is one function of tensors ``q = f(v,
 intrinsics)`` that broadcasts over leading dimensions and is
-differentiable by autograd.
+differentiable by autograd.  ``unproject_core`` is its inverse: closed
+forms for PINHOLE, STEREOGRAPHIC, LONLAT and LATLON, a fixed-length
+Gauss-Newton solve for the OPENCV models.
 
-The registry knows every family, but this slice projects only the
-parametric ones (PINHOLE, STEREOGRAPHIC, LONLAT, LATLON, OPENCV4/5/8/12);
-CAHVOR, CAHVORE and the splined models raise ``NotImplementedError``.
+The registry knows every family, but the port projects and unprojects only
+the parametric ones (PINHOLE, STEREOGRAPHIC, LONLAT, LATLON,
+OPENCV4/5/8/12); CAHVOR, CAHVORE and the splined models raise
+``NotImplementedError``.
 """
 
 import re
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -234,3 +238,102 @@ def project_core(v, intrinsics, lensmodel):
     if fam == "LENSMODEL_LATLON":
         return _project_latlon_core(v, intrinsics)
     return _project_opencv_core(v, intrinsics, lm.num_params)
+
+
+# ----------------------------------------------------------------------------
+# unprojection (q: (...,2), intrinsics: (...,Nparams) -> v: (...,3))
+# ----------------------------------------------------------------------------
+
+def stereographic_v_from_uv(u):
+    """Inverse of stereographic_uv, returning a non-unit vector
+    [u, 1 - |u|^2/4]."""
+    norm2u = torch.sum(u * u, dim=-1)
+    return torch.cat([u, (1.0 - norm2u / 4.0)[..., None]], dim=-1)
+
+
+def _unproject_pinhole_core(q, intrinsics):
+    fx, fy, cx, cy = _core(intrinsics)
+    x = (q[..., 0] - cx) / fx
+    return torch.stack([x, (q[..., 1] - cy) / fy, torch.ones_like(x)],
+                       dim=-1)
+
+
+def _unproject_stereographic_core(q, intrinsics):
+    fx, fy, cx, cy = _core(intrinsics)
+    u = torch.stack([(q[..., 0] - cx) / fx, (q[..., 1] - cy) / fy], dim=-1)
+    return stereographic_v_from_uv(u)
+
+
+def _unproject_lonlat_core(q, intrinsics):
+    fx, fy, cx, cy = _core(intrinsics)
+    lon = (q[..., 0] - cx) / fx
+    lat = (q[..., 1] - cy) / fy
+    clat = torch.cos(lat)
+    return torch.stack([clat * torch.sin(lon), torch.sin(lat),
+                        clat * torch.cos(lon)], dim=-1)
+
+
+def _unproject_latlon_core(q, intrinsics):
+    fx, fy, cx, cy = _core(intrinsics)
+    lat = (q[..., 0] - cx) / fx
+    lon = (q[..., 1] - cy) / fy
+    clat = torch.cos(lat)
+    return torch.stack([torch.sin(lat), clat * torch.sin(lon),
+                        clat * torch.cos(lon)], dim=-1)
+
+
+_CLOSED_FORM_UNPROJECT = {
+    "LENSMODEL_PINHOLE": _unproject_pinhole_core,
+    "LENSMODEL_STEREOGRAPHIC": _unproject_stereographic_core,
+    "LENSMODEL_LONLAT": _unproject_lonlat_core,
+    "LENSMODEL_LATLON": _unproject_latlon_core,
+}
+
+
+# Gauss-Newton iterations of the OPENCV models' unprojection: a fixed
+# count, the JAX package's
+UNPROJECT_ITERATIONS = 25
+
+
+def unproject_core(q, intrinsics, lensmodel):
+    """v = unproject(q).  q: (...,2), intrinsics: (...,Nparams) -> (...,3).
+
+    The closed-form models keep the reference's non-unit conventions
+    (PINHOLE: v_z = 1).  The OPENCV models solve project(v(u)) = q for u
+    in normalized stereographic coordinates by Gauss-Newton, starting from
+    the stereographic guess with the same core, for a fixed number of
+    iterations, with the 2x2 normal equations solved by Cramer's rule.
+    Every point iterates at once; the rows of its 2x2 Jacobian come from
+    two reverse-mode products (two cotangents), so the result carries no
+    autograd graph."""
+    lm = require_ported(lensmodel)
+    if lm.family in _CLOSED_FORM_UNPROJECT:
+        return _CLOSED_FORM_UNPROJECT[lm.family](q, intrinsics)
+
+    bshape = torch.Size(np.broadcast_shapes(q.shape[:-1],
+                                            intrinsics.shape[:-1]))
+    qb = q.detach().expand(bshape + (2,)).reshape(-1, 2)
+    ib = intrinsics.detach().expand(bshape + intrinsics.shape[-1:]).reshape(
+        -1, intrinsics.shape[-1])
+    u = torch.stack([(qb[:, 0] - ib[:, 2]) / ib[:, 0],
+                     (qb[:, 1] - ib[:, 3]) / ib[:, 1]], dim=-1)
+    for _ in range(UNPROJECT_ITERATIONS):
+        with torch.enable_grad():
+            uu = u.requires_grad_(True)
+            q_u = project_core(stereographic_v_from_uv(uu), ib, lm)
+            # row m of J = dq_m/du
+            J0, = torch.autograd.grad(q_u[:, 0], uu, torch.ones_like(qb[:, 0]),
+                                      retain_graph=True)
+            J1, = torch.autograd.grad(q_u[:, 1], uu, torch.ones_like(qb[:, 1]))
+        r = q_u.detach() - qb
+        # J^T J + 1e-12 I and J^T r
+        A00 = J0[:, 0] * J0[:, 0] + J1[:, 0] * J1[:, 0] + 1e-12
+        A01 = J0[:, 0] * J0[:, 1] + J1[:, 0] * J1[:, 1]
+        A11 = J0[:, 1] * J0[:, 1] + J1[:, 1] * J1[:, 1] + 1e-12
+        g0 = J0[:, 0] * r[:, 0] + J1[:, 0] * r[:, 1]
+        g1 = J0[:, 1] * r[:, 0] + J1[:, 1] * r[:, 1]
+        det = A00 * A11 - A01 * A01
+        u = u.detach() - torch.stack([A11 * g0 - A01 * g1,
+                                      A00 * g1 - A01 * g0],
+                                     dim=-1) / det[:, None]
+    return stereographic_v_from_uv(u).reshape(bshape + (3,))

@@ -1,5 +1,6 @@
-"""Optimization core of the port: layout, residuals and the Schur-reduced
-Levenberg-Marquardt solver (counterpart of ``mrcal_tpu.optimize``)."""
+"""Optimization core of the port: layout, residuals, the Schur-reduced
+Levenberg-Marquardt solver and the sparse measurement Jacobian
+(counterpart of ``mrcal_tpu.optimize``)."""
 
 from .layout import (  # noqa: F401
     ProblemSelections,
@@ -12,8 +13,12 @@ from .layout import (  # noqa: F401
     state_index_points, state_index_calobject_warp,
     num_measurements,
     num_measurements_boards, num_measurements_points,
+    num_measurements_points_triangulated,
     num_measurements_regularization,
     measurement_index_boards, measurement_index_points,
+    measurement_index_points_triangulated,
     measurement_index_regularization,
+    decode_observation_indices_points_triangulated,
 )
+from .jacobian import optimizer_callback  # noqa: F401
 from .solver import optimize, optimize_batch  # noqa: F401

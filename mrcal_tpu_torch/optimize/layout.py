@@ -1,15 +1,17 @@
 """State-vector and measurement-vector layout (pure numpy).
 
 A copy of ``mrcal_tpu/optimize/layout.py``, trimmed to what the
-parametric board/point calibration uses.  Semantics are the reference's:
+parametric board, discrete-point and triangulated-point calibrations use.
+Semantics are the reference's:
 
 State order:    intrinsics (per cam: [core if optimized] + [distortions if
                 optimized]) -> extrinsics (6/cam) -> frames (6/frame) ->
                 points (3/point, only Npoints-Npoints_fixed variable) ->
                 calobject_warp (2)
-Measurements:   boards -> points -> regularization
+Measurements:   boards -> points -> triangulated points -> regularization
 
-Triangulated points are not ported yet; an input that has them raises.
+Triangulated points are not state variables: each set of N observations
+of one point gives N(N-1)/2 scalar ray-divergence measurements.
 """
 
 from dataclasses import dataclass, field
@@ -29,8 +31,6 @@ SCALE_TRANSLATION_FRAME = 1.0
 SCALE_POSITION_POINT = SCALE_TRANSLATION_FRAME
 SCALE_CALOBJECT_WARP = 0.01
 SCALE_DISTORTION = 1.0
-
-TRIANGULATED_NOT_PORTED = "ROADMAP queue 1 item 8 (triangulated points)"
 
 
 @dataclass(frozen=True)
@@ -58,6 +58,9 @@ class ProblemSpec:
     Npoints_fixed: int
     Nobservations_board: int
     Nobservations_point: int
+    # triangulated points: tuple of set sizes (each set = observations of one
+    # point); empty if none
+    triangulated_set_sizes: Tuple[int, ...] = ()
     calibration_object_width_n: int = 0
     calibration_object_height_n: int = 0
     calibration_object_spacing: float = 0.0
@@ -165,6 +168,12 @@ class ProblemSpec:
         return self.Nobservations_point * 2
 
     @property
+    def num_measurements_points_triangulated(self):
+        # each set of N observations of a point yields N*(N-1)/2 pairwise
+        # ray-divergence measurements
+        return sum(n * (n - 1) // 2 for n in self.triangulated_set_sizes)
+
+    @property
     def num_measurements_regularization(self):
         s = self.selections
         n = 0
@@ -188,8 +197,13 @@ class ProblemSpec:
         return self.num_measurements_boards
 
     @property
-    def measurement_index_regularization0(self):
+    def measurement_index_points_triangulated0(self):
         return self.measurement_index_points0 + self.num_measurements_points
+
+    @property
+    def measurement_index_regularization0(self):
+        return (self.measurement_index_points_triangulated0
+                + self.num_measurements_points_triangulated)
 
     @property
     def Nmeasurements(self):
@@ -265,14 +279,45 @@ def _shape0(a):
     return 0 if a is None else int(np.asarray(a).shape[0])
 
 
+def _triangulated_set_sizes(indices_point_triangulated):
+    """Sets of observations of one triangulated point, delimited by the
+    ipoint column of the index array: consecutive rows with the same ipoint
+    form one set."""
+    if indices_point_triangulated is None:
+        return ()
+    ipt = np.asarray(indices_point_triangulated)[:, 0]
+    sizes = []
+    n = 0
+    for i in range(len(ipt)):
+        n += 1
+        if i == len(ipt) - 1 or ipt[i + 1] != ipt[i]:
+            sizes.append(n)
+            n = 0
+    for s in sizes:
+        if s < 2:
+            raise ValueError(
+                "each triangulated point must be observed at least twice")
+    return tuple(sizes)
+
+
+def triangulated_pair_indices(set_sizes):
+    """Static (i0, i1) observation-index pairs for every pairwise
+    measurement, in the reference's order (outer i0, inner i1 within a
+    set)."""
+    i0s, i1s = [], []
+    base = 0
+    for n in set_sizes:
+        for a in range(n):
+            for b in range(a + 1, n):
+                i0s.append(base + a)
+                i1s.append(base + b)
+        base += n
+    return np.asarray(i0s, np.int64), np.asarray(i1s, np.int64)
+
+
 def spec_from_inputs(**kw):
     """Build a ProblemSpec from mrcal-style optimization_inputs kwargs."""
     kw = normalize_inputs(kw)
-    if _shape0(kw.get("observations_point_triangulated")) or _shape0(
-            kw.get("indices_point_triangulated_camintrinsics_camextrinsics")):
-        raise NotImplementedError(
-            f"triangulated points are not ported yet: "
-            f"{TRIANGULATED_NOT_PORTED}")
     lensmodel = parse_lensmodel(kw["lensmodel"])
     intrinsics = np.asarray(kw["intrinsics"])
     obs_board = kw.get("observations_board")
@@ -295,6 +340,8 @@ def spec_from_inputs(**kw):
         Npoints_fixed=int(kw.get("Npoints_fixed", 0)),
         Nobservations_board=Nobs_board,
         Nobservations_point=_shape0(kw.get("observations_point")),
+        triangulated_set_sizes=_triangulated_set_sizes(
+            kw.get("indices_point_triangulated_camintrinsics_camextrinsics")),
         calibration_object_width_n=W,
         calibration_object_height_n=H,
         calibration_object_spacing=float(
@@ -380,6 +427,10 @@ def num_measurements_points(**kw):
     return spec_from_inputs(**kw).num_measurements_points
 
 
+def num_measurements_points_triangulated(**kw):
+    return spec_from_inputs(**kw).num_measurements_points_triangulated
+
+
 def num_measurements_regularization(**kw):
     return spec_from_inputs(**kw).num_measurements_regularization
 
@@ -397,3 +448,32 @@ def measurement_index_points(i_observation_point, **kw):
 
 def measurement_index_regularization(**kw):
     return spec_from_inputs(**kw).measurement_index_regularization0
+
+
+def measurement_index_points_triangulated(i_point_triangulated=0, **kw):
+    """Start of the triangulated-point measurements in the measurement
+    vector.  i_point_triangulated indexes SETS (points)."""
+    spec = spec_from_inputs(**kw)
+    off = spec.measurement_index_points_triangulated0
+    for i, n in enumerate(spec.triangulated_set_sizes):
+        if i >= i_point_triangulated:
+            break
+        off += n * (n - 1) // 2
+    return off
+
+
+def decode_observation_indices_points_triangulated(**kw):
+    """Decode the triangulated-point observation indices into per-set
+    bookkeeping: a list of dicts with iobservation0/Nobservations/
+    imeasurement0/Nmeasurements per set."""
+    spec = spec_from_inputs(**kw)
+    out = []
+    iobs = 0
+    imeas = spec.measurement_index_points_triangulated0
+    for n in spec.triangulated_set_sizes:
+        npairs = n * (n - 1) // 2
+        out.append(dict(iobservation0=iobs, Nobservations=n,
+                        imeasurement0=imeas, Nmeasurements=npairs))
+        iobs += n
+        imeas += npairs
+    return out

@@ -1,12 +1,15 @@
 """The residual vector of a calibration problem, as functions of tensors.
 
 Counterpart of ``mrcal_tpu/optimize/residuals.py`` for boards, discrete
-points and the parametric regularization.  Reference semantics:
+points, triangulated points and the parametric regularization.  Reference
+semantics:
 
   - board: 2 weighted-pixel-error measurements per corner; weight < 0 marks
     an outlier -> 0 residual, 0 gradient
   - point: 2 measurements; weight <= 0 -> outlier
-  - measurement order: boards -> points -> regularization
+  - triangulated point: 1 scalar ray-divergence measurement per pair of
+    observations of one point; either weight <= 0 -> 0
+  - measurement order: boards -> points -> triangulated -> regularization
   - board geometry: grid spacing*(x,y), z = warp_x*4 xr(1-xr) + warp_y*4
     yr(1-yr), xr=x/(W-1)
   - joint transform: rt_cam_ref compose rt_ref_frame
@@ -18,9 +21,10 @@ import numpy as np
 import torch
 
 from .._config import DEFAULT_DTYPE
-from ..lensmodels import project_core
-from ..poseutils import _compose_rt2, _transform_point_rt
-from .layout import ProblemSpec, normalize_inputs
+from ..lensmodels import project_core, unproject_core
+from ..poseutils import _compose_rt2, _rotate_point_r, _transform_point_rt
+from ..triangulation import _triangulated_error
+from .layout import ProblemSpec, normalize_inputs, triangulated_pair_indices
 
 SPLINED_NOT_PORTED = "ROADMAP queue 1 item 9 (splined models)"
 
@@ -31,7 +35,10 @@ SPLINED_NOT_PORTED = "ROADMAP queue 1 item 9 (splined models)"
 
 def arrays_from_inputs(optimization_inputs, *, device, dtype=DEFAULT_DTYPE):
     """The dynamic arrays of mrcal-style optimization_inputs as tensors on
-    `device`: floats in `dtype`, index arrays as int64."""
+    `device`: floats in `dtype`, index arrays as int64.  The triangulated
+    observations are also unprojected, with the fixed intrinsics, into
+    unit direction vectors (px_triangulated): triangulated solves do not
+    optimize the intrinsics."""
     kw = normalize_inputs(optimization_inputs)
 
     def arr(name, shape_tail):
@@ -48,7 +55,7 @@ def arrays_from_inputs(optimization_inputs, *, device, dtype=DEFAULT_DTYPE):
                                dtype=torch.int64, device=device)
 
     warp = kw.get("calobject_warp")
-    return dict(
+    out = dict(
         intrinsics=arr("intrinsics", (0,)),
         extrinsics=arr("extrinsics_rt_fromref", (6,)),
         frames=arr("frames_rt_toref", (6,)),
@@ -61,7 +68,22 @@ def arrays_from_inputs(optimization_inputs, *, device, dtype=DEFAULT_DTYPE):
         indices_board=idx("indices_frame_camintrinsics_camextrinsics"),
         observations_point=arr("observations_point", (3,)),
         indices_point=idx("indices_point_camintrinsics_camextrinsics"),
+        observations_point_triangulated=arr(
+            "observations_point_triangulated", (3,)),
+        indices_triangulated=idx(
+            "indices_point_triangulated_camintrinsics_camextrinsics"),
     )
+    obs_tri = out["observations_point_triangulated"]
+    if obs_tri.shape[0]:
+        ici = out["indices_triangulated"][:, 1]
+        v = unproject_core(obs_tri[:, :2], out["intrinsics"][ici],
+                           kw["lensmodel"])
+        out["px_triangulated"] = \
+            v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    else:
+        out["px_triangulated"] = torch.zeros((0, 3), dtype=dtype,
+                                             device=device)
+    return out
 
 
 def params_from_arrays(arrays):
@@ -196,13 +218,45 @@ def residuals_regularization(params, arrays, spec: ProblemSpec):
     return torch.cat(parts)
 
 
+def triangulated_pair_geometry(rt_0r, rt_1r, v0):
+    """A pair's observation-0 ray and baseline in camera-1 coordinates:
+    (v0 in camera 1, camera-0 origin in camera 1), from the two cameras'
+    rt_cam_ref."""
+    v0_ref = _rotate_point_r(rt_0r[..., :3], v0, inverted=True)
+    t_r0 = -_rotate_point_r(rt_0r[..., :3], rt_0r[..., 3:], inverted=True)
+    v0_cam1 = _rotate_point_r(rt_1r[..., :3], v0_ref)
+    t_10 = _rotate_point_r(rt_1r[..., :3], t_r0) + rt_1r[..., 3:]
+    return v0_cam1, t_10
+
+
+def residuals_triangulated(params, arrays, spec: ProblemSpec):
+    """Triangulated-point pairwise ray-divergence measurements: one scalar
+    per pair of observations within each set, from the pre-unprojected
+    directions px_triangulated -> (Npairs,)."""
+    if not spec.num_measurements_points_triangulated:
+        return params["intrinsics"].new_zeros((0,))
+    px = arrays["px_triangulated"]
+    ice = arrays["indices_triangulated"][:, 2]
+    w = arrays["observations_point_triangulated"][:, 2]
+    i0, i1 = (torch.as_tensor(a, device=px.device) for a in
+              triangulated_pair_indices(spec.triangulated_set_sizes))
+    ext_pad = _ext_padded(params["extrinsics"])
+    v0_cam1, t_10 = triangulated_pair_geometry(
+        ext_pad[ice[i0] + 1], ext_pad[ice[i1] + 1], px[i0])
+    err = _triangulated_error(px[i1], v0_cam1, t_10)
+    # either observation marked outlier (weight<=0) kills the measurement
+    valid = (w[i0] > 0) & (w[i1] > 0)
+    return torch.where(valid, err, 0.0)
+
+
 def residuals_full(params, arrays, spec: ProblemSpec):
     """The complete measurement vector x, in the reference's order
-    (boards -> points -> regularization)."""
+    (boards -> points -> triangulated -> regularization)."""
     xb = residuals_board(params, arrays, spec).reshape(-1)
     xp = residuals_point(params, arrays, spec).reshape(-1)
+    xt = residuals_triangulated(params, arrays, spec)
     xr = residuals_regularization(params, arrays, spec)
-    return torch.cat([xb, xp, xr])
+    return torch.cat([xb, xp, xt, xr])
 
 
 # ----------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 Counterpart of ``mrcal_tpu/optimize/solver.py`` for parametric models:
 
-  - per-corner (boards) and per-observation (points) Jacobian rows from
-    autograd, two cotangents each; the global Jacobian is never formed
+  - per-corner (boards), per-observation (points) and per-pair
+    (triangulated points) Jacobian rows from autograd, one cotangent per
+    output component; the global Jacobian is never formed
   - normal equations assembled with batched einsum and ``index_add_``
   - frame (6x6) and point (3x3) blocks eliminated with the batched
     Cholesky kernel (factored once per step, solved three times), the
@@ -11,7 +12,8 @@ Counterpart of ``mrcal_tpu/optimize/solver.py`` for parametric models:
   - the gain-ratio LM control of the JAX package's device loop, as one
     Python loop with tensors on the device and one scalar read per
     iteration
-  - the outlier-rejection loop, the precision modes and the write-back of
+  - the outlier-rejection loop (boards and triangulated pairs), the
+    precision modes, the write-back and the check_gradient mode of
     ``optimize()``
 """
 
@@ -27,11 +29,12 @@ from ..lensmodels import project_core, require_ported
 from ..ops.batched_cholesky import (cholesky_factor_solve,
                                    cholesky_solve_factored)
 from ..poseutils import _compose_rt2, _transform_point_rt
+from ..triangulation import _leecivera_mid2, _triangulated_error
 from . import layout as _layout
-from .layout import ProblemSpec, spec_from_inputs
+from .layout import ProblemSpec, spec_from_inputs, triangulated_pair_indices
 from .residuals import (arrays_from_inputs, params_from_arrays,
                         distortion_regularization_scales, pack_params,
-                        split_packed_state)
+                        split_packed_state, triangulated_pair_geometry)
 
 # relative LM damping floor: keeps the near-gauge-direction step from
 # blowing up into a lambda limit cycle at convergence
@@ -42,7 +45,6 @@ _F32_LAM_FLOOR = 4e-7
 
 _NOT_PORTED_OPTIONS = {
     "mesh": "ROADMAP queue 1 item 11 (multi-GPU)",
-    "check_gradient": "ROADMAP queue 1 item 7 (check_gradient)",
     "verbose": "ROADMAP queue 1 item 7 (verbose per-iteration output)",
 }
 
@@ -177,6 +179,29 @@ def _make_point_fn(spec: ProblemSpec, consts):
     return fn
 
 
+def _make_tri_fn(consts):
+    """Ray divergence of a flat batch of observation pairs: (blocks, v0,
+    v1) -> (N, 1), blocks = dict(rt0, rt1) the two cameras' packed
+    rt_cam_ref, one copy per pair."""
+    def fn(blocks, v0, v1):
+        v0_cam1, t_10 = triangulated_pair_geometry(
+            blocks["rt0"] * consts.ext, blocks["rt1"] * consts.ext, v0)
+        return _triangulated_error(v1, v0_cam1, t_10)[:, None]
+
+    return fn
+
+
+def _corner_grid(spec: ProblemSpec, Nobs, dtype, device):
+    """The board grid indices (x, y) of every corner of Nobs observations,
+    observation-major, then row-major over the board -> (Nobs*H*W, 2)."""
+    xg, yg = np.meshgrid(
+        np.arange(spec.calibration_object_width_n, dtype=np.float64),
+        np.arange(spec.calibration_object_height_n, dtype=np.float64))
+    cxy = np.stack([xg, yg], axis=-1).reshape(-1, 2)
+    return torch.as_tensor(np.tile(cxy, (Nobs, 1)), dtype=dtype,
+                           device=device)
+
+
 def _rows_and_jacobian(fn, blocks, *args):
     """r = fn(blocks, *args) of shape (N, 2) where row i depends only on
     row i of every block, and its Jacobian {k: (N, 2, n_k)}: one backward
@@ -196,6 +221,129 @@ def _rows_and_jacobian(fn, blocks, *args):
     J = {k: torch.stack([rows[m][i] for m in range(len(rows))], dim=1)
          for i, k in enumerate(names)}
     return r.detach(), J
+
+
+class _ObservationRows:
+    """The residual rows of each kind of observation and their Jacobians
+    over the observation's own packed blocks, for one problem, on the
+    device and in the dtype of `arrays`: board rows per corner, point rows
+    per observation, triangulated rows per pair.  The normal equations and
+    the sparse Jacobian both take their rows from here."""
+
+    def __init__(self, spec: ProblemSpec, arrays):
+        dt = arrays["intrinsics"].dtype
+        dev = arrays["intrinsics"].device
+        self.spec = spec
+        self.consts = _Consts(spec, dt, dev)
+        if spec.Nobservations_board:
+            self.board_fn = _make_board_corner_fn(spec, self.consts)
+            self.HW = spec.calibration_object_height_n * \
+                spec.calibration_object_width_n
+            self.cxy = _corner_grid(spec, spec.Nobservations_board, dt, dev)
+        if spec.Nobservations_point:
+            self.point_fn = _make_point_fn(spec, self.consts)
+        if spec.num_measurements_points_triangulated:
+            self.tri_fn = _make_tri_fn(self.consts)
+            self.i0, self.i1 = (
+                torch.as_tensor(a, device=dev) for a in
+                triangulated_pair_indices(spec.triangulated_set_sizes))
+            ice = arrays["indices_triangulated"][:, 2]
+            # the pairs' cameras, as rows of the padded extrinsics
+            self.ie0, self.ie1 = ice[self.i0] + 1, ice[self.i1] + 1
+
+    def packed(self, params):
+        """The packed blocks of a parameter dict in real units: the
+        intrinsics state (Nci, Nip), the full intrinsics (real units), the
+        extrinsics with an identity row first for the camera at the
+        reference (Nce + 1, 6), the frames, points and warp."""
+        s, c = self.spec.selections, self.consts
+        intr_full = params["intrinsics"]
+        cols = []
+        if self.spec.Ncore_state:
+            cols.append(intr_full[:, :4])
+        if s.do_optimize_intrinsics_distortions:
+            cols.append(intr_full[:, self.spec.Ncore:])
+        ext = params["extrinsics"] / c.ext
+        return dict(
+            intr=(torch.cat(cols, dim=-1) / c.intr if cols
+                  else intr_full[:, :0]),
+            intr_full=intr_full,
+            ext=ext,
+            ext_pad=torch.cat([ext.new_zeros((1, 6)), ext], dim=0),
+            frame=params["frames"] / c.frame,
+            point=params["points"] / c.point,
+            warp=params["calobject_warp"] / c.warp,
+            warp_real=params["calobject_warp"])
+
+    def board(self, pk, arrays):
+        """-> r (Nobs*H*W, 2) and J {intr, ext, frame, warp: (Nobs*H*W, 2,
+        n)}.  Every corner gets its own copy of its observation's blocks."""
+        idx = arrays["indices_board"]
+        ifr, ici, ice = idx[:, 0], idx[:, 1], idx[:, 2]
+        blocks = dict(intr=pk["intr"][ici], ext=pk["ext_pad"][ice + 1],
+                      frame=pk["frame"][ifr],
+                      warp=pk["warp"].expand(len(idx), 2))
+        return _rows_and_jacobian(
+            self.board_fn,
+            {k: v.repeat_interleave(self.HW, dim=0)
+             for k, v in blocks.items()},
+            self.cxy, arrays["observations_board"].reshape(-1, 3),
+            pk["intr_full"][ici].repeat_interleave(self.HW, dim=0),
+            pk["warp_real"])
+
+    def point(self, pk, arrays):
+        """-> r (Nobs, 2) and J {intr, ext, point: (Nobs, 2, n)}; fixed
+        points pass their real position / scale."""
+        idx = arrays["indices_point"]
+        ipt, ici, ice = idx[:, 0], idx[:, 1], idx[:, 2]
+        return _rows_and_jacobian(
+            self.point_fn, dict(intr=pk["intr"][ici],
+                                ext=pk["ext_pad"][ice + 1],
+                                point=pk["point"][ipt]),
+            arrays["observations_point"], pk["intr_full"][ici])
+
+    def tri(self, pk, arrays):
+        """-> x (Npairs,) and the Jacobians over the pair's two cameras'
+        packed rt blocks, J0 and J1 (Npairs, 6); 0 for a pair with an
+        outlier observation."""
+        px = arrays["px_triangulated"]
+        w = arrays["observations_point_triangulated"][:, 2]
+        r, J = _rows_and_jacobian(
+            self.tri_fn, dict(rt0=pk["ext_pad"][self.ie0],
+                              rt1=pk["ext_pad"][self.ie1]),
+            px[self.i0], px[self.i1])
+        valid = (w[self.i0] > 0) & (w[self.i1] > 0)
+        # where, not multiply: an outlier pair's err/J may be NaN
+        return (torch.where(valid, r[:, 0], 0.0),
+                torch.where(valid[:, None], J["rt0"][:, 0], 0.0),
+                torch.where(valid[:, None], J["rt1"][:, 0], 0.0))
+
+    def regularization(self, pk):
+        """The per-camera regularization rows (Nci, nterms), distortions
+        then center pixel, and their Jacobians over the camera's
+        intrinsics state (Nci, nterms, Nip), None without one."""
+        spec, consts = self.spec, self.consts
+
+        def reg_fn_cam(intr_state_1, intr_fixed_1, target_1):
+            intr1 = _merge_intrinsics(intr_state_1, intr_fixed_1, spec,
+                                      consts.intr)
+            return _reg_per_camera(intr1, spec, consts, target_1)
+
+        args = (pk["intr"], pk["intr_full"], consts.reg_targets)
+        rreg = torch.func.vmap(reg_fn_cam)(*args)
+        Jreg = (torch.func.vmap(torch.func.jacrev(reg_fn_cam))(*args)
+                if pk["intr"].shape[1] and rreg.shape[1] else None)
+        return rreg, Jreg
+
+    def unity_cam01(self, pk):
+        """The unity_cam01 row (|t| of extrinsics 0 held at 1) and its
+        Jacobian over that camera's packed rt (6,)."""
+        c = 0.1 / 0.01
+        t0 = pk["ext"][0, 3:] * _layout.SCALE_TRANSLATION_CAMERA
+        ru = c * (torch.sum(t0 * t0) - 1.0)
+        Ju = torch.cat([t0.new_zeros(3),
+                        c * 2.0 * t0 * _layout.SCALE_TRANSLATION_CAMERA])
+        return ru, Ju
 
 
 # ----------------------------------------------------------------------------
@@ -250,8 +398,8 @@ def _reg_per_camera(intr_row, spec: ProblemSpec, consts, target):
 
 def build_normal_equations(spec: ProblemSpec, arrays, static_idx):
     """Returns a function f(b, arrays) -> dict(E, g_c, g_f, g_p, Hcc, Hff,
-    Cf, Hpp, Cp, x_board, x_point, x_reg) where b is the packed state;
-    H/C are the block normal-equation pieces in packed coordinates.
+    Cf, Hpp, Cp, x_board, x_point, x_tri, x_reg) where b is the packed
+    state; H/C are the block normal-equation pieces in packed coordinates.
     static_idx carries numpy copies of the index arrays (for the static
     per-camera-pair grouping).  The constants live on the device and in the
     dtype of `arrays`."""
@@ -262,10 +410,8 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx):
     Npv = spec.Npoints_variable
     dt = arrays["intrinsics"].dtype
     dev = arrays["intrinsics"].device
-    consts = _Consts(spec, dt, dev)
-
-    corner_fn = _make_board_corner_fn(spec, consts)
-    point_fn = _make_point_fn(spec, consts)
+    rows_of = _ObservationRows(spec, arrays)
+    consts = rows_of.consts
 
     idxb_np = np.asarray(static_idx["board"]).reshape(-1, 3)
     idxp_np = np.asarray(static_idx["point"]).reshape(-1, 3)
@@ -278,37 +424,23 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx):
     idxb = torch.tensor(idxb_np, dtype=torch.int64, device=dev)
     idxp = torch.tensor(idxp_np, dtype=torch.int64, device=dev)
     if Nob:
-        Hn = spec.calibration_object_height_n
-        Wn = spec.calibration_object_width_n
-        HW = Hn * Wn
-        xg, yg = np.meshgrid(np.arange(Wn, dtype=np.float64),
-                             np.arange(Hn, dtype=np.float64))
-        cxy = np.stack([xg, yg], axis=-1).reshape(-1, 2)      # (HW,2)
-        cxy_all = torch.as_tensor(np.tile(cxy, (Nob, 1)), dtype=dt,
-                                  device=dev)                  # (Nob*HW,2)
+        M = 2 * spec.calibration_object_height_n * \
+            spec.calibration_object_width_n
         ext_valid_b = (idxb[:, 2] >= 0).to(dt)[:, None, None]
     if Nop:
         ext_valid_p = (idxp[:, 2] >= 0).to(dt)[:, None, None]
         point_var = (idxp[:, 0] < Npv).to(dt)[:, None, None]
         ipt_c = torch.clamp(idxp[:, 0], 0, max(Npv - 1, 0))
+    Ntri = spec.num_measurements_points_triangulated
+    if Ntri:
+        # triangulated points are not state: each pair's row touches only
+        # its two cameras' extrinsics, in the Hcc/g_c blocks
+        tri_rows = torch.arange(Ntri, device=dev)
+        tri_ext = bool(s.do_optimize_extrinsics and spec.Ncameras_extrinsics)
 
     def f(b, arrays):
         params = split_packed_state(b, arrays, spec, scales=consts.state)
-        intr_full = params["intrinsics"]                   # (Nci, Nintr) real
-
-        # packed per-camera blocks
-        cols = []
-        if spec.Ncore_state:
-            cols.append(intr_full[:, :4])
-        if s.do_optimize_intrinsics_distortions:
-            cols.append(intr_full[:, spec.Ncore:])
-        intr_packed = (torch.cat(cols, dim=-1) / consts.intr if cols
-                       else intr_full[:, :0])              # (Nci, Nip)
-        ext_packed = params["extrinsics"] / consts.ext
-        ext_pad = torch.cat([ext_packed.new_zeros((1, 6)), ext_packed], dim=0)
-        frames_packed = params["frames"] / consts.frame
-        warp_packed = params["calobject_warp"] / consts.warp
-        points_packed = params["points"] / consts.point
+        pk = rows_of.packed(params)
 
         Nc = cl.Nc
         zeros = b.new_zeros
@@ -327,22 +459,8 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx):
 
         # ---------------- board observations ----------------
         if Nob:
-            ifr, ici, ice = idxb[:, 0], idxb[:, 1], idxb[:, 2]
-            blocks = dict(
-                intr=intr_packed[ici],           # (Nob, Nip)
-                ext=ext_pad[ice + 1],            # (Nob, 6)
-                frame=frames_packed[ifr],        # (Nob, 6)
-                warp=warp_packed.expand(Nob, 2),
-            )
-            # every corner gets its own copy of its observation's blocks
-            corner_blocks = {k: v.repeat_interleave(HW, dim=0)
-                             for k, v in blocks.items()}
-            obs = arrays["observations_board"]
-            r2, J2 = _rows_and_jacobian(
-                corner_fn, corner_blocks, cxy_all, obs.reshape(-1, 3),
-                intr_full[ici].repeat_interleave(HW, dim=0),
-                params["calobject_warp"])
-            M = 2 * HW
+            ifr = idxb[:, 0]
+            r2, J2 = rows_of.board(pk, arrays)
             r = r2.reshape(Nob, M)
             J = {k: v.reshape(Nob, M, v.shape[-1]) for k, v in J2.items()}
             Ji = J["intr"] if Nip > 0 else torch.zeros_like(J["intr"])
@@ -407,16 +525,7 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx):
 
         # ---------------- point observations ----------------
         if Nop:
-            ipt, ici, ice = idxp[:, 0], idxp[:, 1], idxp[:, 2]
-            # variable-point packed positions; fixed points pass real/scale
-            blocks = dict(
-                intr=intr_packed[ici],
-                ext=ext_pad[ice + 1],
-                point=points_packed[ipt],
-            )
-            r, J = _rows_and_jacobian(point_fn, blocks,
-                                      arrays["observations_point"],
-                                      intr_full[ici])           # (Nop,2)
+            r, J = rows_of.point(pk, arrays)                   # (Nop,2)
             Ji = J["intr"] if Nip > 0 else torch.zeros_like(J["intr"])
             Je = J["ext"] if s.do_optimize_extrinsics \
                 else torch.zeros_like(J["ext"])
@@ -459,22 +568,28 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx):
                             torch.einsum("omi,omj->oij", Jp_p, Je_p),
                             ipt_p, Npv)
 
+        # ---------------- triangulated-point pairs ----------------
+        x_tri = zeros((0,))
+        if Ntri:
+            x_tri, J0, J1 = rows_of.tri(pk, arrays)
+            E = E + torch.sum(x_tri * x_tri)
+            if tri_ext:
+                # the pairs' dense rows over the extrinsics, (Ntri, 6*Nce)
+                Jrow = zeros((Ntri, spec.Ncameras_extrinsics + 1, 6))
+                Jrow[tri_rows, rows_of.ie0] = J0
+                Jrow.index_put_((tri_rows, rows_of.ie1), J1, accumulate=True)
+                Jrow = Jrow.reshape(Ntri, -1)[:, 6:]       # drop ref cam
+                Hcc[cl.e0:cl.w0, cl.e0:cl.w0] += Jrow.T @ Jrow
+                g_c[cl.e0:cl.w0] += Jrow.T @ x_tri
+
         # ---------------- regularization ----------------
         x_reg = zeros((0,))
         if spec.num_measurements_regularization:
             # per-camera reg rows depend on that camera's intrinsics state;
             # plus optionally one unity_cam01 row on extrinsics 0
-            def reg_fn_cam(intr_state_1, intr_fixed_1, target_1):
-                intr1 = _merge_intrinsics(intr_state_1, intr_fixed_1, spec,
-                                          consts.intr)
-                return _reg_per_camera(intr1, spec, consts, target_1)
-
-            rreg = torch.func.vmap(reg_fn_cam)(intr_packed, intr_full,
-                                               consts.reg_targets)
+            rreg, Jreg = rows_of.regularization(pk)
             E = E + torch.sum(rreg * rreg)
-            if Nip and rreg.shape[1]:
-                Jreg = torch.func.vmap(torch.func.jacrev(reg_fn_cam))(
-                    intr_packed, intr_full, consts.reg_targets)
+            if Jreg is not None:
                 for ci in range(spec.Ncameras_intrinsics):
                     i0 = cl.coli(ci)
                     g_c[i0:i0 + Nip] += Jreg[ci].T @ rreg[ci]
@@ -491,12 +606,7 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx):
             if (s.do_apply_regularization_unity_cam01
                     and s.do_optimize_extrinsics
                     and spec.Ncameras_extrinsics > 0):
-                c = 0.1 / 0.01
-                t0 = ext_packed[0, 3:] * _layout.SCALE_TRANSLATION_CAMERA
-                ru = c * (torch.sum(t0 * t0) - 1.0)
-                Ju = torch.cat([t0.new_zeros(3),
-                                c * 2.0 * t0 *
-                                _layout.SCALE_TRANSLATION_CAMERA])
+                ru, Ju = rows_of.unity_cam01(pk)
                 E = E + ru * ru
                 e0 = cl.cole(0)
                 g_c[e0:e0 + 6] += Ju * ru
@@ -505,7 +615,8 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx):
 
         return dict(E=E, g_c=g_c, g_f=g_f, g_p=g_p, Hcc=Hcc, Hff=Hff,
                     Cf=Cf, Hpp=Hpp, Cp=Cp,
-                    x_board=x_board, x_point=x_point, x_reg=x_reg)
+                    x_board=x_board, x_point=x_point, x_tri=x_tri,
+                    x_reg=x_reg)
 
     return f
 
@@ -735,45 +846,117 @@ def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
     return b, ne["E"], it, ne
 
 
-def _mark_outliers(spec: ProblemSpec, obs_board_np, x_board):
-    """Reference markOutliers semantics for board observations: estimate
-    the residual variance from the current inliers; if any inlier
-    component exceeds 5 sigma, flip the weight sign of every corner with a
-    component above 4 sigma.  Mutates obs_board_np (weight sign = outlier
-    bit, column 2).  Returns (found_new, Noutliers_board)."""
+def _mark_outliers(spec: ProblemSpec, obs_board_np, x_board,
+                   obs_tri_np=None, x_tri=None, px_tri=None, idx_tri=None,
+                   extrinsics=None):
+    """Reference markOutliers semantics: estimate the residual variance
+    from the current inliers (board and triangulated measurements pooled);
+    if any inlier component exceeds 5 sigma, flip the weight sign of every
+    component above 4 sigma.
+
+    Triangulated pairs:
+      - a pair whose Lee-Civera Mid2 triangulation is DIVERGENT under the
+        current extrinsics is an outlier unconditionally (both of its
+        observations are marked), and forces a re-solve;
+      - the per-pair scalar ray-divergence residuals share the board
+        residuals' k0/k1 sigma thresholds.
+
+    Host code: numpy, and the port's Mid2 on CPU tensors.  Mutates
+    obs_board_np and obs_tri_np (weight sign = outlier bit, column 2).
+    Returns (found_new, Noutliers_board, Noutliers_triangulated)."""
     k0, k1 = 4.0, 5.0
-    W = spec.calibration_object_width_n
-    H = spec.calibration_object_height_n
-    w = obs_board_np[..., 2]                    # (Nobs,H,W)
-    r = np.asarray(x_board).reshape(-1, H, W, 2)
-    inlier_b = w > 0.0
-    Nout_b = int(np.sum(~inlier_b))
-    var_sum = float(np.sum(r[inlier_b] ** 2))
-    denom = 2 * int(np.sum(inlier_b))
+    found = False
+    var_sum = 0.0
+    denom = 0
+
+    have_board = obs_board_np is not None and obs_board_np.size
+    if have_board:
+        W = spec.calibration_object_width_n
+        H = spec.calibration_object_height_n
+        w = obs_board_np[..., 2]                    # (Nobs,H,W)
+        r = np.asarray(x_board).reshape(-1, H, W, 2)
+        inlier_b = w > 0.0
+        Nout_b = int(np.sum(~inlier_b))
+        var_sum += float(np.sum(r[inlier_b] ** 2))
+        denom += 2 * int(np.sum(inlier_b))
+    else:
+        Nout_b = 0
+
+    Nout_t = 0
+    have_tri = obs_tri_np is not None and len(obs_tri_np)
+    if have_tri:
+        i0, i1 = triangulated_pair_indices(spec.triangulated_set_sizes)
+        # divergent triangulations are DEFINITELY outliers
+        ext = np.asarray(extrinsics, np.float64).reshape(-1, 6)
+        ext_pad = torch.as_tensor(np.vstack([np.zeros((1, 6)), ext]))
+        ice = np.asarray(idx_tri)[:, 2]
+        px = torch.as_tensor(np.asarray(px_tri, np.float64))
+        v0_cam1, t_10 = triangulated_pair_geometry(
+            ext_pad[ice[i0] + 1], ext_pad[ice[i1] + 1], px[i0])
+        m = _leecivera_mid2(px[i1], v0_cam1, t_10).numpy()
+        divergent = np.all(m == 0.0, axis=-1)
+
+        w_t = obs_tri_np[:, 2]
+        pair_inlier = (w_t[i0] > 0) & (w_t[i1] > 0)
+        new_div = divergent & pair_inlier
+        if np.any(new_div):
+            bad_obs = np.zeros(len(w_t), bool)
+            bad_obs[i0[new_div]] = True
+            bad_obs[i1[new_div]] = True
+            obs_tri_np[bad_obs & (w_t > 0), 2] *= -1.0
+            found = True
+        w_t = obs_tri_np[:, 2]
+        pair_inlier = (w_t[i0] > 0) & (w_t[i1] > 0)
+        Nout_t = int(np.sum(~pair_inlier))
+        xt = np.asarray(x_tri).reshape(-1)
+        var_sum += float(np.sum(xt[pair_inlier] ** 2))
+        denom += int(np.sum(pair_inlier))
+
     if denom == 0:
-        return False, Nout_b
+        return found, Nout_b, Nout_t
     var = var_sum / denom
-    # any inlier measurement past the k1 trigger?
-    if not np.any((r ** 2 > (k1 * k1) * var) & inlier_b[..., None]):
-        return False, Nout_b
+
+    # any inlier measurement past the k1 trigger? (not needed when a
+    # divergent pair already forces a re-solve)
+    trigger = found
+    if not trigger and have_board:
+        trigger = bool(np.any((r ** 2 > (k1 * k1) * var)
+                              & inlier_b[..., None]))
+    if not trigger and have_tri:
+        trigger = bool(np.any(pair_inlier & (xt ** 2 > (k1 * k1) * var)))
+    if not trigger:
+        return False, Nout_b, Nout_t
+
     # cull everything past k0 (margin to make the re-solve the last one)
-    mark = np.any(r ** 2 > (k0 * k0) * var, axis=-1) & inlier_b
-    obs_board_np[..., 2][mark] *= -1.0
-    Nout_b += int(np.sum(mark))
-    return True, Nout_b
+    if have_board:
+        mark = np.any(r ** 2 > (k0 * k0) * var, axis=-1) & inlier_b
+        obs_board_np[..., 2][mark] *= -1.0
+        Nout_b += int(np.sum(mark))
+    if have_tri:
+        bad_pair = pair_inlier & (xt ** 2 > (k0 * k0) * var)
+        if np.any(bad_pair):
+            w_t = obs_tri_np[:, 2]
+            bad_obs = np.zeros(len(w_t), bool)
+            bad_obs[i0[bad_pair]] = True
+            bad_obs[i1[bad_pair]] = True
+            obs_tri_np[bad_obs & (w_t > 0), 2] *= -1.0
+        w_t = obs_tri_np[:, 2]
+        Nout_t = int(np.sum(~((w_t[i0] > 0) & (w_t[i1] > 0))))
+    return True, Nout_b, Nout_t
 
 
 def _fetch_solution_np(b, ne, E):
     """ONE device->host readback of everything optimize() needs on the
     host: packed state, residual vectors, E (as float64 numpy)."""
     pieces = [b.reshape(-1), ne["x_board"].reshape(-1),
-              ne["x_point"].reshape(-1), ne["x_reg"].reshape(-1),
-              E.reshape(1).to(b.dtype)]
+              ne["x_point"].reshape(-1), ne["x_tri"].reshape(-1),
+              ne["x_reg"].reshape(-1), E.reshape(1).to(b.dtype)]
     sizes = [int(p.shape[0]) for p in pieces]
     flat = torch.cat(pieces).cpu().numpy().astype(np.float64)
     out = {}
     off = 0
-    for name, n in zip(("b", "x_board", "x_point", "x_reg", "E"), sizes):
+    for name, n in zip(("b", "x_board", "x_point", "x_tri", "x_reg", "E"),
+                       sizes):
         out[name] = flat[off:off + n]
         off += n
     out["E"] = float(out["E"][0])
@@ -844,7 +1027,9 @@ def optimize(*, device=None, **kw):
 
     Mutates the input numpy arrays (intrinsics, extrinsics_rt_fromref,
     frames_rt_toref, points, calobject_warp, and observation weights for
-    outlier marking) like the reference does, and returns a stats dict."""
+    outlier marking) like the reference does, and returns a stats dict.
+    check_gradient=True compares the Jacobian with central differences
+    instead, and returns that report without solving."""
     _check_options(kw)
     device = resolve_device(device)
     timer = _SolveTimer()
@@ -854,9 +1039,13 @@ def optimize(*, device=None, **kw):
     spec = spec_from_inputs(**kw)
     require_ported(spec.lensmodel)
 
-    # the caller's array, mutated in place by outlier marking
+    # the caller's arrays, mutated in place by outlier marking
     np_obs_board = np.asarray(kw["observations_board"]) \
         if kw.get("observations_board") is not None else None
+    np_obs_tri = np.asarray(kw["observations_point_triangulated"]) \
+        if kw.get("observations_point_triangulated") is not None else None
+    if np_obs_tri is not None and not len(np_obs_tri):
+        np_obs_tri = None
 
     with timer.phase("pack"):
         arrays = arrays_from_inputs(kw, device=device, dtype=DEFAULT_DTYPE)
@@ -869,6 +1058,12 @@ def optimize(*, device=None, **kw):
     static_idx = dict(
         board=_idx_np("indices_frame_camintrinsics_camextrinsics"),
         point=_idx_np("indices_point_camintrinsics_camextrinsics"))
+
+    if kw.get("check_gradient"):
+        # the reference's semantics: check the Jacobian column by column
+        # against finite differences, and return without solving
+        from .jacobian import _check_gradient_report
+        return _check_gradient_report(spec, arrays, b)
 
     precision = kw.get("precision")
     if precision is None:
@@ -888,6 +1083,13 @@ def optimize(*, device=None, **kw):
     total_niter = 0
     niter_polish = 0
     Noutliers = 0
+    Noutliers_tri = 0
+    outlier_loop = spec.selections.do_apply_outlier_rejection and (
+        spec.Nobservations_board or np_obs_tri is not None)
+    px_tri_np = idx_tri_np = None
+    if outlier_loop and np_obs_tri is not None:
+        px_tri_np = arrays["px_triangulated"].cpu().numpy()
+        idx_tri_np = arrays["indices_triangulated"].cpu().numpy()
     while True:
         if precision == "f32":
             with timer.phase("solve_f32"):
@@ -912,17 +1114,21 @@ def optimize(*, device=None, **kw):
         with timer.phase("fetch"):
             sol = _fetch_solution_np(b, ne, E)
         blocks_np = _unpack_state_np(sol["b"], spec)
-        if not (spec.selections.do_apply_outlier_rejection
-                and spec.Nobservations_board):
+        if not outlier_loop:
             break
         with timer.phase("outlier_rejection"):
-            found, Noutliers = _mark_outliers(spec, np_obs_board,
-                                              sol["x_board"])
+            found, Noutliers, Noutliers_tri = _mark_outliers(
+                spec, np_obs_board, sol["x_board"], obs_tri_np=np_obs_tri,
+                x_tri=sol["x_tri"], px_tri=px_tri_np, idx_tri=idx_tri_np,
+                extrinsics=blocks_np.get("extrinsics",
+                                         kw.get("extrinsics_rt_fromref")))
         if not found:
             break
-        arrays["observations_board"] = torch.as_tensor(
-            np_obs_board, dtype=arrays["observations_board"].dtype,
-            device=device)
+        for name, a in (("observations_board", np_obs_board),
+                        ("observations_point_triangulated", np_obs_tri)):
+            if a is not None:
+                arrays[name] = torch.as_tensor(a, dtype=arrays[name].dtype,
+                                               device=device)
 
     # write back the solution (only the OPTIMIZED slices)
     if "intrinsics_state" in blocks_np and kw.get("intrinsics") is not None:
@@ -948,13 +1154,14 @@ def optimize(*, device=None, **kw):
         np.copyto(np.asarray(kw["calobject_warp"]),
                   blocks_np["calobject_warp"])
 
-    x = np.concatenate([sol["x_board"], sol["x_point"], sol["x_reg"]])
+    x = np.concatenate([sol["x_board"], sol["x_point"], sol["x_tri"],
+                        sol["x_reg"]])
     return dict(
         rms_reproj_error__pixels=float(
             np.sqrt(sol["E"] / max(spec.Nmeasurements, 1))),
         Noutliers=Noutliers,
         Noutliers_board=Noutliers,
-        Noutliers_triangulated_point=0,
+        Noutliers_triangulated_point=Noutliers_tri,
         niterations=total_niter,
         niterations_polish=niter_polish,
         time_s={k: round(v, 6) for k, v in timer.t.items()},

@@ -13,7 +13,10 @@ take their input from a "safe" copy (``th2_safe``), because
 would put NaN into the gradient at th = 0.
 """
 
+import numpy as np
 import torch
+
+from ._config import DEFAULT_DTYPE, resolve_device
 
 
 def skew_symmetric(v):
@@ -109,3 +112,64 @@ def _transform_point_rt(rt, x, inverted=False):
     if inverted:
         return _rotate_point_r(rt[..., :3], x - rt[..., 3:], inverted=True)
     return _rotate_point_r(rt[..., :3], x) + rt[..., 3:]
+
+
+def _finish(result, out):
+    """The reference's out= convention: with an out array (or a tuple of
+    them) the result is written into it, and it is returned."""
+    if out is None:
+        return result
+    if isinstance(result, tuple):
+        for o, res in zip(out, result):
+            np.copyto(np.asarray(o), res.detach().cpu().numpy())
+        return out
+    np.copyto(np.asarray(out), result.detach().cpu().numpy())
+    return out
+
+
+def _as_tensors(device, *arrays):
+    """The arrays as tensors on the entry point's device (None: the card,
+    as ``resolve_device``), all of the first one's dtype if it is floating
+    and float64 otherwise; a None passes through."""
+    device = resolve_device(device)
+    first = torch.as_tensor(arrays[0], device=device)
+    dtype = first.dtype if first.is_floating_point() else DEFAULT_DTYPE
+    return tuple(None if a is None
+                 else torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in arrays)
+
+
+def _vjac(fn, args, core_dims, argnum):
+    """d fn / d args[argnum] by forward mode, for fn a function of single
+    samples whose argument i has core_dims[i] trailing dimensions; batched
+    over the broadcast leading dimensions of args."""
+    core = [a.dim() - d for a, d in zip(args, core_dims)]
+    lead = torch.Size(np.broadcast_shapes(*(a.shape[:c]
+                                            for a, c in zip(args, core))))
+    flat = [a.expand(lead + a.shape[c:]).reshape((-1,) + a.shape[c:])
+            for a, c in zip(args, core)]
+    J = torch.func.vmap(torch.func.jacfwd(fn, argnums=argnum))(*flat)
+    return J.reshape(lead + J.shape[1:])
+
+
+def _rotate_point_R(R, x, inverted=False):
+    if inverted:
+        R = R.transpose(-1, -2)
+    return torch.einsum("...ij,...j->...i", R, x)
+
+
+def rotate_point_R(R, x, *, get_gradients=False, out=None, inverted=False,
+                   device=None):
+    """u = R x (or R^T x).  R: (...,3,3), x: (...,3).  Runs on the card
+    unless device says otherwise.
+
+    get_gradients: returns (u, du/dR (...,3,3,3), du/dx (...,3,3))."""
+    R, x = _as_tensors(device, R, x)
+    u = _rotate_point_R(R, x, inverted)
+    if not get_gradients:
+        return _finish(u, out)
+
+    def f(R_, x_):
+        return _rotate_point_R(R_, x_, inverted)
+    return _finish((u, _vjac(f, (R, x), (2, 1), 0),
+                    _vjac(f, (R, x), (2, 1), 1)), out)

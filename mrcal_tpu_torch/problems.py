@@ -4,14 +4,16 @@ Ports the JAX package's problem builders so that the port's own tools
 (``chip_smoke.py``) can make the bench problems: ``make_problem`` is
 ``__graft_entry__._make_problem``, ``make_perfect_observations`` is
 ``synthetic_data.make_perfect_observations`` (board and point branches),
-``perturbed_oi`` is ``bench._perturbed_oi``, and ``opencv8_1cam`` and
-``rig16cam`` are the bench's configurations of those names.
+``perturbed_oi`` is ``bench._perturbed_oi``, and ``opencv8_1cam``,
+``opencv8_4cam``, ``rig16cam`` and ``sfm_triangulated`` are the bench's
+configurations of those names.
 
 The builders draw from the GLOBAL numpy RNG in exactly the JAX package's
 order (``np.random.seed(0)``, then ``randn`` for the frames, then ``randn``
-for the observation noise), so the problems are identical to the JAX
-package's.  Their arithmetic runs on the CPU in float64: the output is
-numpy.
+for the observation noise; for sfm_triangulated ``uniform`` three times
+for the points, then ``randn`` per observation), so the problems are
+identical to the JAX package's.  Their arithmetic runs on the CPU in
+float64: the output is numpy.
 """
 
 import copy
@@ -31,6 +33,11 @@ _CPU = torch.device("cpu")
 # bench.py's opencv8_1cam configuration: one camera, 84 frames of a 14x14
 # board (Nmeasurements 32938, Nstate 518)
 OPENCV8_1CAM = dict(Ncameras=1, Nframes=84, model="LENSMODEL_OPENCV8",
+                    W=14, H=14)
+
+# bench.py's opencv8_4cam configuration: four cameras, 84 frames of a
+# 14x14 board (Nmeasurements 131752, Nstate 572)
+OPENCV8_4CAM = dict(Ncameras=4, Nframes=84, model="LENSMODEL_OPENCV8",
                     W=14, H=14)
 
 # bench.py's rig16cam configuration: a 4x4 rig of OPENCV8 cameras on a
@@ -142,12 +149,22 @@ def perturbed_oi(oi, seed=1, scale=1e-2, perturb_intrinsics=False):
     return oi
 
 
-def opencv8_1cam():
-    """The bench's opencv8_1cam optimization_inputs (outlier rejection
-    off, as the bench runs it), unperturbed."""
-    oi = make_problem(**OPENCV8_1CAM, device=_CPU)[0]
+def _bench_board(**mk):
+    """A bench board configuration: outlier rejection off, as the bench
+    runs it, and unperturbed."""
+    oi = make_problem(**mk, device=_CPU)[0]
     oi["do_apply_outlier_rejection"] = False
     return oi
+
+
+def opencv8_1cam():
+    """The bench's opencv8_1cam optimization_inputs."""
+    return _bench_board(**OPENCV8_1CAM)
+
+
+def opencv8_4cam():
+    """The bench's opencv8_4cam optimization_inputs."""
+    return _bench_board(**OPENCV8_4CAM)
 
 
 def _rig16_frames(Nframes):
@@ -166,8 +183,56 @@ def rig16cam():
     ext = np.array([[0.01 * (i % 4), 0.01 * (i // 4), 0.0,
                      -0.15 * (i % 4), -0.15 * (i // 4), 0.0]
                     for i in range(1, 16)])
-    oi = make_problem(**RIG16CAM, extrinsics_rt_fromref=ext,
-                      frames_rt_toref=_rig16_frames(RIG16CAM["Nframes"]),
-                      device=_CPU)[0]
-    oi["do_apply_outlier_rejection"] = False
-    return oi
+    return _bench_board(**RIG16CAM, extrinsics_rt_fromref=ext,
+                        frames_rt_toref=_rig16_frames(RIG16CAM["Nframes"]))
+
+
+def sfm_triangulated(Ncameras=8, Npoints=500):
+    """The bench's sfm_triangulated optimization_inputs (bench.py
+    _sfm_config), unperturbed: PINHOLE cameras of 1600x1000 on a
+    non-collinear trajectory, camera 0 at the reference and camera 1 at
+    distance 1 (the scale that unity_cam01 holds), and points seen by two
+    or more cameras, observed with 0.1 px of noise.  The intrinsics are
+    fixed, the points are triangulated (not in the state), and outlier
+    rejection is off.  At the default size: 492 points, 3527
+    observations, Nmeasurements 11443, Nstate 42.  Smaller Ncameras and
+    Npoints give smaller problems of the same kind."""
+    np.random.seed(0)
+    model = "LENSMODEL_PINHOLE"
+    W, H = 1600, 1000
+    intr = np.array([[800., 800., (W - 1) / 2, (H - 1) / 2]])
+    rt_true = np.zeros((Ncameras, 6))
+    for i in range(1, Ncameras):
+        rt_true[i] = [0.02 * i, -0.05 * i, 0.01 * i,
+                      -0.4 * i, 0.08 * np.sin(i), 0.05 * i]
+    rt_true[1:, 3:] /= np.linalg.norm(rt_true[1, 3:])
+    pts = np.stack([np.random.uniform(-6, 6, Npoints),
+                    np.random.uniform(-3, 3, Npoints),
+                    np.random.uniform(5.0, 25.0, Npoints)], axis=-1)
+    p_cam = _transform_point_rt(torch.as_tensor(rt_true[:, None, :]),
+                                torch.as_tensor(pts[None]))  # (Ncam,Npts,3)
+    q_all = project_core(p_cam, torch.as_tensor(intr[0]), model).numpy()
+    p_cam = p_cam.numpy()
+    vis = ((q_all[..., 0] >= 0) & (q_all[..., 0] <= W - 1)
+           & (q_all[..., 1] >= 0) & (q_all[..., 1] <= H - 1)
+           & (p_cam[..., 2] > 0))                            # (Ncam,Npts)
+    obs, idx = [], []
+    for ip in np.nonzero(vis.sum(axis=0) >= 2)[0]:
+        for ic in np.nonzero(vis[:, ip])[0]:
+            q = q_all[ic, ip]
+            obs.append([q[0] + np.random.randn() * 0.1,
+                        q[1] + np.random.randn() * 0.1, 1.0])
+            idx.append([ip, 0, ic - 1])
+    return dict(
+        intrinsics=intr,
+        extrinsics_rt_fromref=rt_true[1:].copy(),
+        observations_point_triangulated=np.array(obs),
+        indices_point_triangulated_camintrinsics_camextrinsics=np.array(
+            idx, dtype=np.int32),
+        lensmodel=model,
+        imagersizes=np.array([[W, H]]),
+        do_optimize_intrinsics_core=False,
+        do_optimize_intrinsics_distortions=False,
+        do_apply_regularization_unity_cam01=True,
+        do_apply_outlier_rejection=False,
+    )

@@ -127,9 +127,12 @@ def test_pack_split_and_residuals_match_jax(problems_oi, which):
 
 
 def test_triangulated_inputs_raise(board_oi):
+    """A triangulated point must be observed at least twice: point 1 of
+    these is seen once, and both layouts refuse it."""
     oi = dict(board_oi,
-              observations_point_triangulated=np.zeros((2, 3)),
-              indices_point_triangulated_camintrinsics_camextrinsics=np.zeros(
-                  (2, 3), np.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlayout.spec_from_inputs(**oi)
+              observations_point_triangulated=np.zeros((3, 3)),
+              indices_point_triangulated_camintrinsics_camextrinsics=np.array(
+                  [[0, 0, -1], [0, 0, 0], [1, 0, 0]], np.int32))
+    for layout in (tlayout, jlayout):
+        with pytest.raises(ValueError, match="at least twice"):
+            layout.spec_from_inputs(**oi)

@@ -69,7 +69,7 @@ def test_normal_equations_match_jax(problems, which):
     p = problems[which]
     ne = tsolver.build_normal_equations(p.tspec, p.tarrays, p.static_idx)(
         p.tb0, p.tarrays)
-    assert set(ne) == set(p.ne_jax) - {"x_tri"}
+    assert set(ne) == set(p.ne_jax)
     for k, v in ne.items():
         _close(v.numpy(), p.ne_jax[k], 1e-10)
 
@@ -212,9 +212,12 @@ def test_optimize_without_device_needs_a_card(problems):
         t_optimize(**_copy(problems["board"].oi))
 
 
-@pytest.mark.parametrize("option", [dict(mesh=2), dict(check_gradient=True),
-                                    dict(verbose=True),
-                                    dict(lensmodel="LENSMODEL_CAHVOR")])
+@pytest.mark.parametrize("option", [
+    dict(mesh=2),
+    dict(lensmodel="LENSMODEL_SPLINED_STEREOGRAPHIC_order=3_Nx=11_Ny=8"
+                   "_fov_x_deg=120"),
+    dict(verbose=True),
+    dict(lensmodel="LENSMODEL_CAHVOR")])
 def test_optimize_raises_on_what_the_slice_does_not_cover(problems, option):
     oi = _copy(problems["board"].oi)
     if "lensmodel" in option:
