@@ -16,8 +16,8 @@ nonzero:
    the factor-then-solve checks (f64 and f32, n=6 and n=3, a ragged
    batch, a non-SPD block, a cond-1e6 f32 batch), then the fused
    cholesky_factor_solve and the solve at the Schur step's shapes
-   (opencv8_1cam, opencv8_4cam, rig16cam), a ragged B, K past a warp,
-   B = 0 and a large-B sweep, f64 and f32.
+   (opencv8_1cam, opencv8_4cam, rig16cam, splined_30x18's K = 1083), a
+   ragged B, K past a warp, B = 0 and a large-B sweep, f64 and f32.
 4. main path: the bench's opencv8_1cam calibration (LENSMODEL_OPENCV8, one
    camera, 84 frames of a 14x14 board; 32938 measurements, 518 states),
    perturbed as bench._perturbed_oi(seed=1), solved by optimize() on the
@@ -41,11 +41,22 @@ nonzero:
    K = 69 columns), warm-up, then a timed f64 solve held to the JAX
    package's f64 rms, 0.29864967030878176 px +- 1e-6, in 32 +- 3
    iterations, one launch of each path kernel per iteration.
-   optimizer_callback: on the card and on the CPU for sfm_triangulated
-   and opencv8_1cam; the sparse Jacobians' shapes and stored entries
-   agree, and x and J agree to 1e-12 of their largest entry.  Then
-   optimize(check_gradient=True) on a small board problem, card against
-   CPU.
+   splined_30x18: the bench's splined model
+   (LENSMODEL_SPLINED_STEREOGRAPHIC_order=3_Nx=30_Ny=18_fov_x_deg=150,
+   core locked; 84 frames; 34008 measurements, 1586 states; the frame
+   blocks are solved against K = 1083 columns), through the spline-window
+   normal equations: warm-up, then a timed f64 solve held to the JAX
+   package's f64 rms, 0.2878366388388636 px +- 1e-6, in 80 +- 5
+   iterations, one launch of each path kernel per iteration; a mixed
+   solve (its f32 phase with the lazy Hessian, K = 4) held to +- 1e-5;
+   and the mixed pipeline with the float32-H polish (its f64 phase
+   assembles H in float32 under the float64 gradient) held to +- 1e-6.
+   optimizer_callback: on the card and on the CPU for sfm_triangulated,
+   opencv8_1cam and splined_30x18 (each board row: its 32 window entries,
+   its frame and the warp); the sparse Jacobians' shapes and stored
+   entries agree, and x and J agree to 1e-12 of their largest entry.
+   Then optimize(check_gradient=True) on a small board problem and on a
+   small splined one, card against CPU.
    triangulate: the six two-view wrappers (with their gradients),
    rotate_point_R and unproject_core (PINHOLE, OPENCV8) on the card, the
    wrappers' default device, against the CPU, to 1e-12.
@@ -93,6 +104,13 @@ SFM_NITER_RANGE = (6 - 3, 6 + 3)
 CAM4_F64_RMS = 0.29864967030878176
 CAM4_F64_RMS_TOL = 1e-6
 CAM4_NITER_RANGE = (32 - 3, 32 + 3)
+# splined_30x18: the JAX package's converged f64 rms and iterations on the
+# CPU (PERF.md section 2 gives the command)
+SPLINED_F64_RMS = 0.2878366388388636
+SPLINED_F64_RMS_TOL = 1e-6
+SPLINED_NITER_RANGE = (80 - 5, 80 + 5)
+SPLINED_MIXED_RMS_TOL = 1e-5
+SPLINED_H32_RMS_TOL = 1e-6
 # optimizer_callback on the card against the CPU: x and J to this much of
 # their largest entry
 CALLBACK_REL_TOL = 1e-12
@@ -268,11 +286,11 @@ def phase_kernels(torch):
 MAIN_SHAPES = [(84, 6, 15), (84, 6, 1)]
 CAM4_SHAPES = [(84, 6, 69)]                  # K = 4*12 + 3*6 + 2 + 1
 RIG16_SHAPES = [(40, 6, 285), (40, 6, 1)]
+SPLINED_SHAPES = [(84, 6, 1083)]             # K = 2*30*18 + 2 + 1
 LARGE_SHAPES = [(1 << 20, 3, 4), (1 << 18, 6, 15), (1 << 20, 3, 1),
                 (1 << 18, 6, 1)]
-CHECK_SHAPES = (MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
-                + [(131, 6, 33), (131, 3, 4),
-                                               (0, 6, 15), (70000, 6, 0)]
+CHECK_SHAPES = (MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES + SPLINED_SHAPES
+                + [(131, 6, 33), (131, 3, 4), (0, 6, 15), (70000, 6, 0)]
                 + LARGE_SHAPES)
 
 
@@ -354,7 +372,7 @@ def time_kernels(torch, card):
 
     shapes = dict(
         cholesky_factor_solve=(MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
-                               + LARGE_SHAPES),
+                               + SPLINED_SHAPES + LARGE_SHAPES),
         cholesky_solve_factored=(MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
                                  + LARGE_SHAPES),
         cholesky_factor=[(84, 6, 0), (1 << 20, 3, 0), (1 << 18, 6, 0)])
@@ -498,6 +516,7 @@ def time_halves(torch, phase, oi_solved, stats):
     out = {}
     with torch.no_grad():
         ne = ne_fn(b, arrays)
+        out["fused_K"] = ne["Cf"].shape[-1] + 1
         lam = torch.full((), 1e-4, dtype=b.dtype, device=b.device)
         for label, fn in (("normal_equations", lambda: ne_fn(b, arrays)),
                           ("schur_step", lambda: schur_step(ne, lam,
@@ -597,6 +616,63 @@ def phase_4cam(torch):
         (131752, 572), CAM4_F64_RMS, CAM4_F64_RMS_TOL, CAM4_NITER_RANGE)
 
 
+def phase_splined(torch):
+    """splined_30x18 through the spline-window normal equations: f64 (the
+    fused solve at K = 1083), mixed (the f32 phase's lazy Hessian) and the
+    float32-H polish."""
+    from mrcal_tpu_torch import optimize, problems
+    from mrcal_tpu_torch.convert import from_reference
+    from mrcal_tpu_torch.optimize.solver import _lazy_h_K, lm_solve
+    phase = "splined_30x18"
+    oi, f64 = timed_solve(
+        torch, phase, problems.perturbed_oi(problems.splined_30x18(), seed=1),
+        (34008, 1586), SPLINED_F64_RMS, SPLINED_F64_RMS_TOL,
+        SPLINED_NITER_RANGE)
+    if f64["fused_K"] != SPLINED_SHAPES[0][2]:
+        fail(f"[{phase}] the fused solve ran at K = {f64['fused_K']}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = optimize(precision="mixed", **SOLVE_KW, **_copy(oi))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rms = stats["rms_reproj_error__pixels"]
+    n_pol = stats["niterations_polish"]
+    spec, arrays, b0 = from_reference(oi, device="cuda")
+    lazy_K = _lazy_h_K(spec, torch.float32, b0.device)
+    log(f"[{phase}] mixed (f32 phase lazy-H K = {lazy_K}): rms {rms!r} px, "
+        f"{stats['niterations'] - n_pol} f32 + {n_pol} f64 iterations, "
+        f"{wall:.4f} s wall, phases {stats['time_s']}")
+    if lazy_K != 4 or not abs(rms - SPLINED_F64_RMS) <= SPLINED_MIXED_RMS_TOL:
+        fail(f"[{phase}] mixed rms {rms!r} (lazy K {lazy_K})")
+    mixed = dict(rms=rms, niterations_f32=stats["niterations"] - n_pol,
+                 niterations_polish=n_pol, wall_s=wall, lazy_K=lazy_K)
+
+    # the float32-H polish: the mixed pipeline's f64 phase with H and C
+    # assembled in float32 under the float64 gradient
+    static_idx = dict(board=oi["indices_frame_camintrinsics_camextrinsics"],
+                      point=np.zeros((0, 3), np.int64))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b32, _, n32, _ = lm_solve(spec, arrays, b0, static_idx,
+                              dtype=torch.float32, quiet=True, **SOLVE_KW)
+    _, E, niter, ne = lm_solve(spec, arrays, b32.to(torch.float64),
+                               static_idx, h32=True, max_iterations=300,
+                               update_threshold=SOLVE_KW["update_threshold"])
+    rms = float(np.sqrt(float(E) / spec.Nmeasurements))
+    wall = time.perf_counter() - t0
+    log(f"[{phase}] mixed with the f32-H polish: rms {rms!r} px in {n32} "
+        f"f32 + {niter} f64 iterations, {wall:.4f} s wall (H "
+        f"{ne['Hcc'].dtype}, g {ne['g_c'].dtype}); plain f64: "
+        f"{f64['niterations']} iterations, {f64['wall_s']:.4f} s")
+    if ne["Hcc"].dtype != torch.float32 or \
+            not abs(rms - SPLINED_F64_RMS) <= SPLINED_H32_RMS_TOL:
+        fail(f"[{phase}] f32-H polish rms {rms!r}")
+    h32 = dict(rms=rms, niterations_f32=n32, niterations=niter, wall_s=wall)
+    f64.update(mixed=mixed, h32=h32)
+    return oi, f64
+
+
 def phase_callback(torch, phase, oi):
     """optimizer_callback on the card against the CPU: the same sparse
     structure, and x and J to CALLBACK_REL_TOL of their largest entry."""
@@ -620,6 +696,13 @@ def phase_callback(torch, phase, oi):
     if not same:
         fail(f"optimizer_callback {phase}: the card's sparse structure "
              "differs from the CPU's")
+    if phase == "splined_30x18":
+        # a board row: its 4x4 window on both surfaces, its frame, the warp
+        nb = 2 * 84 * 14 * 14
+        per_row = np.diff(J_g.indptr)[:nb]
+        if not (per_row == 32 + 6 + 2).all():
+            fail(f"optimizer_callback {phase}: board rows store "
+                 f"{sorted(set(per_row.tolist()))} entries, not 40")
     if not (err_b <= CALLBACK_REL_TOL and err_x <= CALLBACK_REL_TOL
             and err_J <= CALLBACK_REL_TOL):
         fail(f"optimizer_callback {phase}: card and CPU disagree")
@@ -627,19 +710,20 @@ def phase_callback(torch, phase, oi):
                 rel_err_b=err_b, rel_err_x=err_x, rel_err_J=err_J)
 
 
-def phase_check_gradient(torch):
+def phase_check_gradient(torch, **mk):
     """optimize(check_gradient=True) on the card against the CPU, on a
     small board problem: the same columns checked, and the same worst
     relative error within CHECK_GRADIENT_ABS_TOL."""
     from mrcal_tpu_torch import optimize, problems
-    oi = problems.make_problem(Ncameras=2, Nframes=4, W=4, H=3,
-                               device="cpu")[0]
+    oi = problems.make_problem(device="cpu", **(mk or dict(
+        Ncameras=2, Nframes=4, W=4, H=3)))[0]
     t0 = time.perf_counter()
     s_g = optimize(check_gradient=True, **_copy(oi))
     wall = time.perf_counter() - t0
     s_c = optimize(check_gradient=True, device="cpu", **_copy(oi))
     d = abs(s_g["worst_relative_error"] - s_c["worst_relative_error"])
-    log(f"[callback] check_gradient on the card: {s_g['ncols_checked']} "
+    log(f"[callback] check_gradient {oi['lensmodel']} on the card: "
+        f"{s_g['ncols_checked']} "
         f"columns in {wall:.3f} s, worst relative error "
         f"{s_g['worst_relative_error']:.6e} (column {s_g['worst_ivar']}); "
         f"CPU {s_c['worst_relative_error']:.6e} (column "
@@ -769,6 +853,7 @@ def main():
         fail("the mrcal_tpu_torch package is not beside chip_smoke.py")
     sys.path.insert(0, ROOT)
     import torch
+    from mrcal_tpu_torch.problems import SPLINED_30X18
     t_start = time.perf_counter()
 
     def stamp(phase):
@@ -786,13 +871,19 @@ def main():
     others = {}
     for name, phase in (("rig16cam", phase_rig16cam),
                         ("sfm_triangulated", phase_sfm),
-                        ("opencv8_4cam", phase_4cam)):
+                        ("opencv8_4cam", phase_4cam),
+                        ("splined_30x18", phase_splined)):
         others[name] = phase(torch)
         stamp(name)
     callbacks = {name: phase_callback(torch, name, oi) for name, oi in (
         ("sfm_triangulated", others["sfm_triangulated"][0]),
-        ("opencv8_1cam", oi_main))}
+        ("opencv8_1cam", oi_main),
+        ("splined_30x18", others["splined_30x18"][0]))}
     callbacks["check_gradient"] = phase_check_gradient(torch)
+    callbacks["check_gradient_splined"] = phase_check_gradient(
+        torch, Ncameras=1, Nframes=6, W=8, H=6,
+        model=SPLINED_30X18["model"],
+        do_optimize_intrinsics_core=False)
     stamp("callbacks")
     triangulate = phase_triangulate(torch)
     stamp("triangulate")
@@ -807,6 +898,10 @@ def main():
         stamp(f"{name} profile")
     for e in entries:
         e["launches"] = main_path["f64"]["launches"][e["name"]]
+        e["launches_by_path"] = dict(
+            opencv8_1cam=e["launches"],
+            **{name: summary["launches"][e["name"]]
+               for name, (_, summary) in others.items()})
         e["device_us_per_launch_main_path"] = per_launch[e["name"]]
     log(f"[main] summary {json.dumps(main_path)}")
     for name, (_, summary) in others.items():

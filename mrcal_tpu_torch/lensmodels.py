@@ -7,14 +7,21 @@ and the OPENCV models keep OpenCV's order k1,k2,p1,p2[,k3[,k4,k5,k6
 intrinsics)`` that broadcasts over leading dimensions and is
 differentiable by autograd.  ``unproject_core`` is its inverse: closed
 forms for PINHOLE, STEREOGRAPHIC, LONLAT and LATLON, a fixed-length
-Gauss-Newton solve for the OPENCV models.
+Gauss-Newton solve for the OPENCV and splined models.
+
+LENSMODEL_SPLINED_STEREOGRAPHIC_order=O_Nx=NX_Ny=NY_fov_x_deg=F is the
+core plus 2*Nx*Ny B-spline control points, laid out (Ny, Nx, 2) with the
+x surface interleaved with the y surface: q = (u + deltau(u)) * f + c,
+u the normalized stereographic projection, deltau a uniform B-spline
+surface of order 2 or 3 over the knot grid.
 
 The registry knows every family, but the port projects and unprojects only
 the parametric ones (PINHOLE, STEREOGRAPHIC, LONLAT, LATLON,
-OPENCV4/5/8/12); CAHVOR, CAHVORE and the splined models raise
+OPENCV4/5/8/12) and the splined one; CAHVOR and CAHVORE raise
 ``NotImplementedError``.
 """
 
+import math
 import re
 from dataclasses import dataclass
 from typing import Optional
@@ -45,16 +52,16 @@ _CONFIG_FIELDS = {
         [("order", int), ("Nx", int), ("Ny", int), ("fov_x_deg", int)],
 }
 
-# families whose projection this slice ports
-PARAMETRIC_FAMILIES = ("LENSMODEL_PINHOLE", "LENSMODEL_STEREOGRAPHIC",
-                       "LENSMODEL_LONLAT", "LENSMODEL_LATLON",
-                       "LENSMODEL_OPENCV4", "LENSMODEL_OPENCV5",
-                       "LENSMODEL_OPENCV8", "LENSMODEL_OPENCV12")
+# families whose projection the port has
+PORTED_FAMILIES = ("LENSMODEL_PINHOLE", "LENSMODEL_STEREOGRAPHIC",
+                   "LENSMODEL_LONLAT", "LENSMODEL_LATLON",
+                   "LENSMODEL_OPENCV4", "LENSMODEL_OPENCV5",
+                   "LENSMODEL_OPENCV8", "LENSMODEL_OPENCV12",
+                   "LENSMODEL_SPLINED_STEREOGRAPHIC")
 
 _NOT_PORTED = {
     "LENSMODEL_CAHVOR": "ROADMAP queue 1 item 3 (CAHVOR projection)",
     "LENSMODEL_CAHVORE": "ROADMAP queue 1 item 3 (CAHVORE projection)",
-    "LENSMODEL_SPLINED_STEREOGRAPHIC": "ROADMAP queue 1 item 9 (splined models)",
 }
 
 
@@ -88,6 +95,17 @@ class LensModel:
     def metadata(self):
         _, meta = _FAMILIES[self.family]
         return dict(meta)
+
+    @property
+    def segments_per_u(self):
+        """Knot segments per unit of normalized stereographic u, splined
+        models only: the knot grid spans fov_x_deg across Nx, less a
+        margin of knots the spline order needs at the edge."""
+        assert self.family == "LENSMODEL_SPLINED_STEREOGRAPHIC"
+        margin = 1 if self.order == 2 else 2
+        th_edge_x = self.fov_x_deg / 2.0 * math.pi / 180.0
+        u_edge_x = math.tan(th_edge_x / 2.0) * 2.0
+        return (self.Nx - 1 - margin) / (u_edge_x * 2.0)
 
 
 def parse_lensmodel(name):
@@ -139,9 +157,9 @@ def lensmodel_metadata_and_config(lensmodel):
 
 
 def require_ported(lensmodel):
-    """Raise NotImplementedError for a family this slice does not project."""
+    """Raise NotImplementedError for a family the port does not project."""
     lm = parse_lensmodel(lensmodel)
-    if lm.family not in PARAMETRIC_FAMILIES:
+    if lm.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{lm.name} is not ported yet: {_NOT_PORTED[lm.family]}")
     return lm
@@ -224,11 +242,128 @@ def _project_opencv_core(v, intrinsics, nparams):
     return torch.stack([xd * fx + cx, yd * fy + cy], dim=-1)
 
 
+# --- splined stereographic ---------------------------------------------------
+
+def knots_for_splined_models(lensmodel, dtype=torch.float64, device=None):
+    """(ux, uy): the knot locations of a splined model in normalized
+    stereographic coordinates, (Nx,) and (Ny,)."""
+    lm = parse_lensmodel(lensmodel)
+    if lm.family != "LENSMODEL_SPLINED_STEREOGRAPHIC":
+        raise ValueError("knots_for_splined_models requires a "
+                         "LENSMODEL_SPLINED_STEREOGRAPHIC model")
+    spu = lm.segments_per_u
+    ux = (torch.arange(lm.Nx, dtype=dtype, device=device)
+          - (lm.Nx - 1) / 2.0) / spu
+    uy = (torch.arange(lm.Ny, dtype=dtype, device=device)
+          - (lm.Ny - 1) / 2.0) / spu
+    return ux, uy
+
+
+def _bspline_weights_cubic(t):
+    """Uniform cubic B-spline basis of t in [0,1] -> (..., 4)."""
+    t2 = t * t
+    t3 = t2 * t
+    A = (-t3 + 3 * t2 - 3 * t + 1) / 6.0
+    B = (3 * t3 / 2 - 3 * t2 + 2) / 3.0
+    C = (-3 * t3 + 3 * t2 + 3 * t + 1) / 6.0
+    D = t3 / 6.0
+    return torch.stack([A, B, C, D], dim=-1)
+
+
+def _bspline_weights_quadratic(t):
+    """Uniform quadratic B-spline basis of t in [-1/2,1/2] -> (..., 3)."""
+    t2 = t * t
+    A = (4 * t2 - 4 * t + 1) / 8.0
+    B = (3 - 4 * t2) / 4.0
+    C = (4 * t2 + 4 * t + 1) / 8.0
+    return torch.stack([A, B, C], dim=-1)
+
+
+def bspline_weights(t, lm):
+    """The spline basis of the model's order at local coordinates t."""
+    return (_bspline_weights_cubic(t) if lm.order == 3
+            else _bspline_weights_quadratic(t))
+
+
+def splined_window_index(u, lm):
+    """The spline window of normalized stereographic points u (..., 2):
+    (ix0, iy0, tx, ty), the window origin as int64, clipped to [1, N-3]
+    (order 3) or [1, N-2] (order 2), and the local coordinates.  Points
+    off the grid keep the edge window and extrapolate (t outside the
+    basis's interval).  The origin carries no gradient; tx and ty do."""
+    spu = lm.segments_per_u
+    ix = u[..., 0] * spu + (lm.Nx - 1) / 2.0
+    iy = u[..., 1] * spu + (lm.Ny - 1) / 2.0
+    if lm.order == 3:
+        ix0 = torch.clamp(torch.floor(ix.detach()).to(torch.int64),
+                          1, lm.Nx - 3)
+        iy0 = torch.clamp(torch.floor(iy.detach()).to(torch.int64),
+                          1, lm.Ny - 3)
+    else:
+        ix0 = torch.clamp(torch.floor(ix.detach() + 0.5).to(torch.int64),
+                          1, lm.Nx - 2)
+        iy0 = torch.clamp(torch.floor(iy.detach() + 0.5).to(torch.int64),
+                          1, lm.Ny - 2)
+    return ix0, iy0, ix - ix0, iy - iy0
+
+
+def _gather_window_batched(coeffs, iyw, ixw):
+    """coeffs (..., Ny, Nx, 2) whose leading dimensions broadcast to those
+    of the windows' (..., R) rows iyw and columns ixw -> (..., R, R, 2).
+    Indexes the leading dimensions in place (no broadcast copy of the
+    coefficients)."""
+    nb = iyw.dim() - 1
+    lead = coeffs.shape[:-3]
+    coeffs = coeffs.reshape((1,) * (nb - len(lead)) + coeffs.shape)
+    idx = []
+    for d in range(nb):
+        shape = [1] * (nb + 2)
+        shape[d] = coeffs.shape[d]
+        idx.append(torch.arange(coeffs.shape[d],
+                                device=iyw.device).reshape(shape))
+    return coeffs[tuple(idx) + (iyw[..., :, None], ixw[..., None, :])]
+
+
+def splined_deltau(u, coeffs, lm):
+    """The spline correction deltau(u) -> (..., 2).  u: (..., 2)
+    normalized stereographic coordinates; coeffs: (Ny, Nx, 2) control
+    points (x surface [..., 0]), or (..., Ny, Nx, 2) with leading
+    dimensions that broadcast against u's.  A gather of the (order+1)^2
+    window and its weighted sum; autograd through the gather gives the
+    window's gradient."""
+    ix0, iy0, tx, ty = splined_window_index(u, lm)
+    R = lm.order + 1
+    wx = bspline_weights(tx, lm)                          # (..., R)
+    wy = bspline_weights(ty, lm)
+    offs = torch.arange(R, device=u.device)
+    ixw = ix0[..., None] - 1 + offs                       # (..., R)
+    iyw = iy0[..., None] - 1 + offs
+    if coeffs.dim() == 3:
+        window = coeffs[iyw[..., :, None], ixw[..., None, :], :]
+    else:
+        bshape = tuple(np.broadcast_shapes(u.shape[:-1], coeffs.shape[:-3]))
+        window = _gather_window_batched(coeffs, iyw.expand(bshape + (R,)),
+                                        ixw.expand(bshape + (R,)))
+    return torch.einsum("...i,...j,...ijk->...k", wy, wx, window)
+
+
+def _project_splined_core(v, intrinsics, lm):
+    fx, fy, cx, cy = _core(intrinsics)
+    u = stereographic_uv(v)
+    coeffs = intrinsics[..., 4:].reshape(intrinsics.shape[:-1]
+                                         + (lm.Ny, lm.Nx, 2))
+    du = splined_deltau(u, coeffs, lm)
+    return torch.stack([(u[..., 0] + du[..., 0]) * fx + cx,
+                        (u[..., 1] + du[..., 1]) * fy + cy], dim=-1)
+
+
 def project_core(v, intrinsics, lensmodel):
     """q = project(v).  v: (...,3), intrinsics: (...,Nparams) -> q: (...,2).
     Family dispatch is on the (python) lens model."""
     lm = require_ported(lensmodel)
     fam = lm.family
+    if fam == "LENSMODEL_SPLINED_STEREOGRAPHIC":
+        return _project_splined_core(v, intrinsics, lm)
     if fam == "LENSMODEL_PINHOLE":
         return _project_pinhole_core(v, intrinsics)
     if fam == "LENSMODEL_STEREOGRAPHIC":
@@ -290,8 +425,8 @@ _CLOSED_FORM_UNPROJECT = {
 }
 
 
-# Gauss-Newton iterations of the OPENCV models' unprojection: a fixed
-# count, the JAX package's
+# Gauss-Newton iterations of the unprojection of the models without a
+# closed form: a fixed count, the JAX package's
 UNPROJECT_ITERATIONS = 25
 
 
@@ -299,7 +434,8 @@ def unproject_core(q, intrinsics, lensmodel):
     """v = unproject(q).  q: (...,2), intrinsics: (...,Nparams) -> (...,3).
 
     The closed-form models keep the reference's non-unit conventions
-    (PINHOLE: v_z = 1).  The OPENCV models solve project(v(u)) = q for u
+    (PINHOLE: v_z = 1).  The OPENCV and splined models solve
+    project(v(u)) = q for u
     in normalized stereographic coordinates by Gauss-Newton, starting from
     the stereographic guess with the same core, for a fixed number of
     iterations, with the 2x2 normal equations solved by Cramer's rule.

@@ -9,7 +9,9 @@ per-observation autograd blocks (per corner, per point observation, per
 triangulated pair, per camera of regularization) and the state layout's
 column indices; the dense (Nmeasurements, Nstate) matrix is never formed.
 Each measurement row carries only its own observation's intrinsics,
-extrinsics, frame or point, and warp blocks.
+extrinsics, frame or point, and warp blocks; with a splined model whose
+core is locked, a board row's intrinsics block is its spline window, the
+2(order+1)^2 control points it depends on.
 """
 
 import numpy as np
@@ -21,7 +23,7 @@ from ..lensmodels import require_ported
 from .layout import ProblemSpec, normalize_inputs, spec_from_inputs
 from .residuals import (arrays_from_inputs, pack_params, params_from_arrays,
                         residuals_from_packed, split_packed_state)
-from .solver import _ObservationRows
+from .solver import _ObservationRows, _splined_fast_path_ok
 
 # check_gradient: the central-difference step (packed units), and the
 # number of state columns checked at most (a random subset beyond it)
@@ -38,7 +40,6 @@ def _sparse_jacobian(b, arrays, spec: ProblemSpec):
     tensor on the device of `arrays`) as a scipy CSR matrix of shape
     (Nmeasurements, Nstate).  Entries of an observation's blocks that are
     0 stay stored; the regularization rows store their nonzeros only."""
-    require_ported(spec.lensmodel)   # splined rows: ROADMAP item 9
     s = spec.selections
     rows_of = _ObservationRows(spec, arrays)
     pk = rows_of.packed(split_packed_state(b, arrays, spec,
@@ -69,11 +70,16 @@ def _sparse_jacobian(b, arrays, spec: ProblemSpec):
     if spec.Nobservations_board:
         idx = np.repeat(_np(arrays["indices_board"]),
                         rows_of.HW, axis=0)                 # per corner
-        _, J = rows_of.board(pk, arrays)
-        J = {k: _np(v) for k, v in J.items()}              # (N, 2, n)
         rows = np.arange(len(idx) * 2).reshape(-1, 2, 1)
-        if Nip:
-            emit_blocks(rows, i_intr0, Nip, idx[:, 1], J["intr"])
+        if _splined_fast_path_ok(spec):
+            _, J, Jw, wincols, _ = rows_of.splined_board(pk, arrays)
+            J = {k: _np(v) for k, v in J.items()}
+            emit(rows, i_intr0 + _np(wincols)[:, None, :], _np(Jw))
+        else:
+            _, J = rows_of.board(pk, arrays)
+            J = {k: _np(v) for k, v in J.items()}          # (N, 2, n)
+            if Nip:
+                emit_blocks(rows, i_intr0, Nip, idx[:, 1], J["intr"])
         if s.do_optimize_extrinsics:
             emit_blocks(rows, i_ext0, 6, idx[:, 2], J["ext"], idx[:, 2] >= 0)
         if s.do_optimize_frames:

@@ -1,7 +1,8 @@
 """The residual vector of a calibration problem, as functions of tensors.
 
 Counterpart of ``mrcal_tpu/optimize/residuals.py`` for boards, discrete
-points, triangulated points and the parametric regularization.  Reference
+points, triangulated points and the parametric and splined
+regularization.  Reference
 semantics:
 
   - board: 2 weighted-pixel-error measurements per corner; weight < 0 marks
@@ -25,8 +26,6 @@ from ..lensmodels import project_core, unproject_core
 from ..poseutils import _compose_rt2, _rotate_point_r, _transform_point_rt
 from ..triangulation import _triangulated_error
 from .layout import ProblemSpec, normalize_inputs, triangulated_pair_indices
-
-SPLINED_NOT_PORTED = "ROADMAP queue 1 item 9 (splined models)"
 
 
 # ----------------------------------------------------------------------------
@@ -177,8 +176,43 @@ def distortion_regularization_scales(spec: ProblemSpec):
     return sh
 
 
+# splined regularization: the nominal pixel error over this many pixels
+SPLINED_REGULARIZATION_SCALE = 0.1 / 10.0
+
+
+def knot_direction_weights(spec: ProblemSpec):
+    """Per-knot radial unit vector (ux, uy) and tangential weight of the
+    splined regularization, (Ny, Nx) numpy arrays each: the radial
+    direction from the grid's center, (1, 0) at the center knot, whose
+    tangential weight is 1 (10 elsewhere)."""
+    Nx, Ny = spec.lensmodel.Nx, spec.lensmodel.Ny
+    ix, iy = np.meshgrid(np.arange(Nx), np.arange(Ny))
+    ux = (2 * ix - Nx + 1).astype(np.float64)
+    uy = (2 * iy - Ny + 1).astype(np.float64)
+    center = (ux == 0) & (uy == 0)
+    mag = np.sqrt(ux * ux + uy * uy)
+    mag[center] = 1.0
+    ux = ux / mag
+    uy = uy / mag
+    ux[center] = 1.0
+    uy[center] = 0.0
+    extra = np.where(center, 1.0, 10.0)
+    return ux, uy, extra
+
+
+def splined_regularization(du, ux, uy, extra):
+    """The splined regularization rows of control points du (..., Ny, Nx,
+    2): per knot, row-major over (iy, ix), its radial then its tangential
+    component, scaled -> (..., 2 Ny Nx)."""
+    scale = SPLINED_REGULARIZATION_SCALE
+    err_rad = scale * (du[..., 0] * ux + du[..., 1] * uy)
+    err_tan = scale * extra * (du[..., 0] * uy - du[..., 1] * ux)
+    return torch.stack([err_rad, err_tan], dim=-1).reshape(
+        du.shape[:-3] + (-1,))
+
+
 def residuals_regularization(params, arrays, spec: ProblemSpec):
-    """Regularization measurements of the parametric models -> (Nreg,)."""
+    """Regularization measurements -> (Nreg,)."""
     s = spec.selections
     intr = params["intrinsics"]
     dt, dev = intr.dtype, intr.device
@@ -188,12 +222,15 @@ def residuals_regularization(params, arrays, spec: ProblemSpec):
     if s.do_apply_regularization and s.do_optimize_intrinsics_distortions \
             and spec.Ndistortions > 0:
         if spec.is_splined:
-            raise NotImplementedError(
-                f"splined regularization is not ported yet: "
-                f"{SPLINED_NOT_PORTED}")
-        sh = torch.as_tensor(distortion_regularization_scales(spec),
-                             dtype=dt, device=dev)
-        parts.append((intr[:, spec.Ncore:] * sh).reshape(-1))
+            lm = spec.lensmodel
+            du = intr[:, 4:].reshape(-1, lm.Ny, lm.Nx, 2)
+            w = (torch.as_tensor(a, dtype=dt, device=dev)
+                 for a in knot_direction_weights(spec))
+            parts.append(splined_regularization(du, *w).reshape(-1))
+        else:
+            sh = torch.as_tensor(distortion_regularization_scales(spec),
+                                 dtype=dt, device=dev)
+            parts.append((intr[:, spec.Ncore:] * sh).reshape(-1))
 
     if s.do_apply_regularization and spec.has_core \
             and s.do_optimize_intrinsics_core:

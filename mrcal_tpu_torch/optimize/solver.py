@@ -1,17 +1,24 @@
 """Trust-region Levenberg-Marquardt with Schur-complement block elimination.
 
-Counterpart of ``mrcal_tpu/optimize/solver.py`` for parametric models:
+Counterpart of ``mrcal_tpu/optimize/solver.py`` for parametric and
+splined models:
 
   - per-corner (boards), per-observation (points) and per-pair
     (triangulated points) Jacobian rows from autograd, one cotangent per
     output component; the global Jacobian is never formed
-  - normal equations assembled with batched einsum and ``index_add_``
+  - normal equations assembled with batched einsum and ``index_add_``;
+    splined boards with the core locked take the spline-window assembly
+    instead: each corner row holds its (order+1)^2-knot window, a
+    closed-form Jacobian, written into dense camera-system rows with
+    ``index_put_`` and multiplied out (H = rows^T rows), optionally in
+    float32 under a float64 gradient
   - frame (6x6) and point (3x3) blocks eliminated with the batched
     Cholesky kernel (factored once per step, solved three times), the
-    reduced camera system solved densely
+    reduced camera system solved densely, in the H blocks' dtype
   - the gain-ratio LM control of the JAX package's device loop, as one
     Python loop with tensors on the device and one scalar read per
-    iteration
+    iteration, with the lazy-Hessian mode (H refreshed every K+1-th
+    accepted step, E and g exact on every one)
   - the outlier-rejection loop (boards and triangulated pairs), the
     precision modes, the write-back and the check_gradient mode of
     ``optimize()``
@@ -25,7 +32,8 @@ import numpy as np
 import torch
 
 from .._config import DEFAULT_DTYPE, resolve_device
-from ..lensmodels import project_core, require_ported
+from ..lensmodels import (bspline_weights, project_core, require_ported,
+                          splined_window_index, stereographic_uv)
 from ..ops.batched_cholesky import (cholesky_factor_solve,
                                    cholesky_solve_factored)
 from ..poseutils import _compose_rt2, _transform_point_rt
@@ -33,8 +41,10 @@ from ..triangulation import _leecivera_mid2, _triangulated_error
 from . import layout as _layout
 from .layout import ProblemSpec, spec_from_inputs, triangulated_pair_indices
 from .residuals import (arrays_from_inputs, params_from_arrays,
-                        distortion_regularization_scales, pack_params,
-                        split_packed_state, triangulated_pair_geometry)
+                        distortion_regularization_scales,
+                        knot_direction_weights, pack_params,
+                        residuals_from_packed, split_packed_state,
+                        splined_regularization, triangulated_pair_geometry)
 
 # relative LM damping floor: keeps the near-gauge-direction step from
 # blowing up into a lambda limit cycle at convergence
@@ -105,6 +115,8 @@ class _Consts:
         self.warp = t(_WARP_SCALES)
         self.point = t(_POINT_SCALES)
         self.reg_dist = t(distortion_regularization_scales(spec))
+        if spec.is_splined:
+            self.reg_knots = tuple(t(a) for a in knot_direction_weights(spec))
         self.reg_targets = t([[(w - 1) * 0.5, (h - 1) * 0.5]
                               for w, h in spec.imagersizes]
                              or np.zeros((spec.Ncameras_intrinsics, 2)))
@@ -130,36 +142,73 @@ def _merge_intrinsics(intr_state, intr_fixed, spec, iscales):
 # per-corner / per-observation residual functions (packed blocks -> rows)
 # ----------------------------------------------------------------------------
 
+def _board_corners_cam(spec: ProblemSpec, consts, blocks, cxy, warp_fixed):
+    """A flat batch of board corners in camera coordinates (N, 3), from
+    each corner's packed ext, frame and warp blocks (N, n) and its grid
+    indices cxy (N, 2) (x, y) as floats."""
+    H = spec.calibration_object_height_n
+    W = spec.calibration_object_width_n
+    sp = spec.calibration_object_spacing
+    rt_cam = blocks["ext"] * consts.ext
+    rt_frame = blocks["frame"] * consts.frame
+    if spec.has_calobject_warp:
+        warp = blocks["warp"] * consts.warp
+    else:
+        warp = warp_fixed.expand(cxy.shape[0], 2)
+    rt_joint = _compose_rt2(rt_cam, rt_frame)
+    xr = cxy[:, 0] / (W - 1)
+    yr = cxy[:, 1] / (H - 1)
+    z = (warp[:, 0] * 4.0 * xr * (1.0 - xr) +
+         warp[:, 1] * 4.0 * yr * (1.0 - yr))
+    pt = torch.stack([cxy[:, 0] * sp, cxy[:, 1] * sp, z], dim=-1)
+    return _transform_point_rt(rt_joint, pt)
+
+
 def _make_board_corner_fn(spec: ProblemSpec, consts):
     """Board residual of a flat batch of corners: (blocks, corner grid xy,
     observed corners) -> (N, 2).  Each corner has its own copy of the
     packed blocks, so one backward pass per output component gives every
     corner's Jacobian row at once."""
-    H = spec.calibration_object_height_n
-    W = spec.calibration_object_width_n
-    sp = spec.calibration_object_spacing
 
     def fn(blocks, cxy, obs_c, intr_fixed, warp_fixed):
         # blocks: dict(intr (N,Nip), ext (N,6), frame (N,6), warp (N,2))
         # cxy: (N,2) grid indices (x, y) as floats; obs_c: (N,3) x,y,weight
         intr = _merge_intrinsics(blocks["intr"], intr_fixed, spec,
                                  consts.intr)
-        rt_cam = blocks["ext"] * consts.ext
-        rt_frame = blocks["frame"] * consts.frame
-        if spec.has_calobject_warp:
-            warp = blocks["warp"] * consts.warp
-        else:
-            warp = warp_fixed.expand(cxy.shape[0], 2)
-        rt_joint = _compose_rt2(rt_cam, rt_frame)
-        xr = cxy[:, 0] / (W - 1)
-        yr = cxy[:, 1] / (H - 1)
-        z = (warp[:, 0] * 4.0 * xr * (1.0 - xr) +
-             warp[:, 1] * 4.0 * yr * (1.0 - yr))
-        pt = torch.stack([cxy[:, 0] * sp, cxy[:, 1] * sp, z], dim=-1)
-        p_cam = _transform_point_rt(rt_joint, pt)
+        p_cam = _board_corners_cam(spec, consts, blocks, cxy, warp_fixed)
         q = project_core(p_cam, intr, spec.lensmodel)
         w = torch.clamp_min(obs_c[:, 2], 0.0)
         return (q - obs_c[:, :2]) * w[:, None]                 # (N,2)
+
+    return fn
+
+
+def _make_splined_corner_fn(spec: ProblemSpec, consts):
+    """Board residual of a flat batch of corners of a splined model with
+    the core locked, as a function of the pose blocks alone: (blocks,
+    corner grid xy, observed corners, core (N, 4), control points
+    (Nci, Ny, Nx, 2), cameras (N,)) -> (N, 2), and as aux the window
+    origins (ix0, iy0) and the basis weights (wx, wy) (N, R), without
+    gradient.  The window origin carries no gradient; the local
+    coordinates within it carry the pose's."""
+    lm = spec.lensmodel
+    R = lm.order + 1
+
+    def fn(blocks, cxy, obs_c, core4, coeffs, ici_c, warp_fixed):
+        p_cam = _board_corners_cam(spec, consts, blocks, cxy, warp_fixed)
+        u = stereographic_uv(p_cam)
+        ix0, iy0, tx, ty = splined_window_index(u, lm)
+        offs = torch.arange(R, device=u.device)
+        win = coeffs[ici_c[:, None, None],
+                     (iy0[:, None] - 1 + offs)[:, :, None],
+                     (ix0[:, None] - 1 + offs)[:, None, :]]   # (N,R,R,2)
+        wx = bspline_weights(tx, lm)
+        wy = bspline_weights(ty, lm)
+        du = torch.einsum("ni,nj,nijk->nk", wy, wx, win)
+        q = (u + du) * core4[:, :2] + core4[:, 2:4]
+        w = torch.clamp_min(obs_c[:, 2], 0.0)
+        return ((q - obs_c[:, :2]) * w[:, None],
+                (ix0, iy0, wx.detach(), wy.detach()))
 
     return fn
 
@@ -202,14 +251,17 @@ def _corner_grid(spec: ProblemSpec, Nobs, dtype, device):
                            device=device)
 
 
-def _rows_and_jacobian(fn, blocks, *args):
+def _rows_and_jacobian(fn, blocks, *args, has_aux=False):
     """r = fn(blocks, *args) of shape (N, 2) where row i depends only on
     row i of every block, and its Jacobian {k: (N, 2, n_k)}: one backward
-    pass per output component (two cotangents)."""
+    pass per output component (two cotangents).  has_aux: fn returns (r,
+    aux), and this returns (r, J, aux)."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in blocks.items()}
     names = list(leaves)
     with torch.enable_grad():
         r = fn(leaves, *args)
+        if has_aux:
+            r, aux = r
         rows = []
         for m in range(r.shape[1]):
             g = torch.autograd.grad(
@@ -220,7 +272,24 @@ def _rows_and_jacobian(fn, blocks, *args):
                          for k, gk in zip(names, g)])
     J = {k: torch.stack([rows[m][i] for m in range(len(rows))], dim=1)
          for i, k in enumerate(names)}
+    if has_aux:
+        return r.detach(), J, aux
     return r.detach(), J
+
+
+def _rows_and_vjp(fn, blocks, *args):
+    """(r, aux) = fn(blocks, *args) as in _rows_and_jacobian, and
+    J_i^T r_i per row i {k: (N, n_k)}, from one backward pass with r as
+    its cotangent: the gradient without the Jacobian."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in blocks.items()}
+    names = list(leaves)
+    with torch.enable_grad():
+        r, aux = fn(leaves, *args)
+        g = torch.autograd.grad(r, [leaves[k] for k in names],
+                                grad_outputs=r.detach(), allow_unused=True)
+    return r.detach(), {k: gk if gk is not None
+                        else torch.zeros_like(leaves[k])
+                        for k, gk in zip(names, g)}, aux
 
 
 class _ObservationRows:
@@ -237,6 +306,8 @@ class _ObservationRows:
         self.consts = _Consts(spec, dt, dev)
         if spec.Nobservations_board:
             self.board_fn = _make_board_corner_fn(spec, self.consts)
+            if spec.is_splined:
+                self.splined_fn = _make_splined_corner_fn(spec, self.consts)
             self.HW = spec.calibration_object_height_n * \
                 spec.calibration_object_width_n
             self.cxy = _corner_grid(spec, spec.Nobservations_board, dt, dev)
@@ -290,6 +361,52 @@ class _ObservationRows:
             self.cxy, arrays["observations_board"].reshape(-1, 3),
             pk["intr_full"][ici].repeat_interleave(self.HW, dim=0),
             pk["warp_real"])
+
+    def splined_board(self, pk, arrays, jacobian=True):
+        """The board rows of a splined model with the core locked, per
+        corner: r (N, 2), the pose Jacobian {ext, frame, warp: (N, 2,
+        n)}, the window Jacobian Jw (N, 2, 2R^2) over the window's control
+        points, their columns in the camera-system layout wincols (N,
+        2R^2), and the windows' (ix0, iy0, wx, wy).  q is linear in the
+        window: dr_k/dwin[jy, jx, m] = w f_k wy[jy] wx[jx] delta_km, in
+        packed units since the distortions' packing scale is 1.
+        jacobian=False: J^T r per corner {ext, frame, warp: (N, n)} in
+        place of the pose Jacobian, and no Jw."""
+        assert _layout.SCALE_DISTORTION == 1.0
+        spec = self.spec
+        lm = spec.lensmodel
+        R = lm.order + 1
+        idx = arrays["indices_board"]
+        ifr, ici, ice = idx[:, 0], idx[:, 1], idx[:, 2]
+        ici_c = ici.repeat_interleave(self.HW)
+        blocks = dict(ext=pk["ext_pad"][ice + 1], frame=pk["frame"][ifr],
+                      warp=pk["warp"].expand(len(idx), 2))
+        intr_full = pk["intr_full"]
+        core4 = intr_full[ici_c, :4]
+        coeffs = intr_full[:, 4:].reshape(-1, lm.Ny, lm.Nx, 2)
+        obs_c = arrays["observations_board"].reshape(-1, 3)
+        args = ({k: v.repeat_interleave(self.HW, dim=0)
+                 for k, v in blocks.items()},
+                self.cxy, obs_c, core4, coeffs, ici_c, pk["warp_real"])
+        if not jacobian:
+            r, JTr, aux = _rows_and_vjp(self.splined_fn, *args)
+            return r, JTr, aux
+        r, J, (ix0, iy0, wx, wy) = _rows_and_jacobian(
+            self.splined_fn, *args, has_aux=True)
+        N = r.shape[0]
+        f2 = core4[:, :2] * torch.clamp_min(obs_c[:, 2], 0.0)[:, None]
+        eye2 = torch.eye(2, dtype=r.dtype, device=r.device)
+        Jw = (wy[:, None, :, None, None] * wx[:, None, None, :, None]
+              * f2[:, :, None, None, None]
+              * eye2[None, :, None, None, :]).reshape(N, 2, R * R * 2)
+        offs = torch.arange(R, device=r.device)
+        knot = ((iy0[:, None] - 1 + offs)[:, :, None] * lm.Nx
+                + (ix0[:, None] - 1 + offs)[:, None, :])      # (N,R,R)
+        wincols = (ici_c[:, None, None, None]
+                   * spec.Nintrinsics_state_per_cam
+                   + 2 * knot[..., None]
+                   + torch.arange(2, device=r.device)).reshape(N, -1)
+        return r, J, Jw, wincols, (ix0, iy0, wx, wy)
 
     def point(self, pk, arrays):
         """-> r (Nobs, 2) and J {intr, ext, point: (Nobs, 2, n)}; fixed
@@ -383,7 +500,12 @@ def _reg_per_camera(intr_row, spec: ProblemSpec, consts, target):
     nominal_pixel_error = 0.1
     if s.do_apply_regularization and s.do_optimize_intrinsics_distortions \
             and spec.Ndistortions > 0:
-        parts.append(intr_row[spec.Ncore:] * consts.reg_dist)
+        if spec.is_splined:
+            lm = spec.lensmodel
+            parts.append(splined_regularization(
+                intr_row[4:].reshape(lm.Ny, lm.Nx, 2), *consts.reg_knots))
+        else:
+            parts.append(intr_row[spec.Ncore:] * consts.reg_dist)
     if s.do_apply_regularization and spec.has_core \
             and s.do_optimize_intrinsics_core:
         # the reference scales by camera 0's width for ALL cameras, but
@@ -396,14 +518,25 @@ def _reg_per_camera(intr_row, spec: ProblemSpec, consts, target):
     return torch.cat(parts)
 
 
-def build_normal_equations(spec: ProblemSpec, arrays, static_idx):
+def build_normal_equations(spec: ProblemSpec, arrays, static_idx, *,
+                           h32=False):
     """Returns a function f(b, arrays) -> dict(E, g_c, g_f, g_p, Hcc, Hff,
     Cf, Hpp, Cp, x_board, x_point, x_tri, x_reg) where b is the packed
     state; H/C are the block normal-equation pieces in packed coordinates.
     static_idx carries numpy copies of the index arrays (for the static
     per-camera-pair grouping).  The constants live on the device and in the
-    dtype of `arrays`."""
+    dtype of `arrays`.
+
+    Splined models with the core locked take the spline-window assembly
+    (build_normal_equations_splined), whose f also has a gradient-only
+    mode, and which alone takes h32."""
     require_ported(spec.lensmodel)
+    if _splined_fast_path_ok(spec):
+        return build_normal_equations_splined(spec, arrays, static_idx,
+                                              h32=h32)
+    if h32:
+        raise ValueError("h32: only the splined window assembly assembles "
+                         "H in float32")
     s = spec.selections
     cl = _CLayout(spec)
     Nf = spec.Nframes
@@ -622,6 +755,187 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx):
 
 
 # ----------------------------------------------------------------------------
+# splined models: the spline-window assembly
+# ----------------------------------------------------------------------------
+
+def _splined_fast_path_ok(spec: ProblemSpec):
+    """The spline-window assembly takes the standard splined
+    configuration: boards only, core locked, distortions optimized."""
+    return (spec.is_splined
+            and spec.Ncore_state == 0
+            and spec.selections.do_optimize_intrinsics_distortions
+            and spec.Nobservations_point == 0
+            and spec.num_measurements_points_triangulated == 0
+            and spec.Nobservations_board > 0)
+
+
+def _one_hot(ids, n, dtype):
+    """(n, len(ids)) with a 1 at [ids[j], j]: sums by segment become
+    products, which are deterministic on the card (index_add_ is not)."""
+    return (torch.arange(n, device=ids.device)[:, None]
+            == ids[None, :]).to(dtype)
+
+
+def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
+                                   *, h32=False):
+    """Normal equations of a splined model with the core locked, boards
+    only.  Each corner's two rows depend on its pose blocks (autograd,
+    two cotangents) and on the 2(order+1)^2 control points of its spline
+    window (closed form).  They are written into dense camera-system rows
+    (N, 2, Nc) with index_put_ (exact: a row's columns are distinct), and
+    Hcc = rows^T rows, Cf = Jf^T rows per observation, as plain products.
+    The gradient takes the tensor-product separability of the basis
+    instead of the rows: g_knot[c, y, x, m] = sum_n [ici_n = c] ry[n, y]
+    rx[n, x] f_m w r_nm, with rx, ry the basis weights scattered onto the
+    grid.
+
+    f(b, arrays, hessian=True) -> the dict of build_normal_equations;
+    hessian=False gives E, the gradient and the residuals only, and skips
+    the rows and their products (the lazy-Hessian mode).  h32: the rows
+    and the H and C blocks in float32, the gradient in the state's dtype
+    (the float64-gradient, float32-H scheme)."""
+    s = spec.selections
+    cl = _CLayout(spec)
+    lm = spec.lensmodel
+    Nf = spec.Nframes
+    Nce = spec.Ncameras_extrinsics
+    Nci = spec.Ncameras_intrinsics
+    Npv = spec.Npoints_variable
+    dt = arrays["intrinsics"].dtype
+    dev = arrays["intrinsics"].device
+    hdt = torch.float32 if h32 else dt
+    rows_of = _ObservationRows(spec, arrays)
+    consts = rows_of.consts
+    HW = rows_of.HW
+    M2 = 2 * HW
+    idxb = torch.tensor(np.asarray(static_idx["board"]).reshape(-1, 3),
+                        dtype=torch.int64, device=dev)
+    Nob = len(idxb)
+    N = Nob * HW
+    ici_c = idxb[:, 1].repeat_interleave(HW)
+    ice_c = idxb[:, 2].repeat_interleave(HW)
+    oh_f = _one_hot(idxb[:, 0], Nf, dt)                  # (Nf, Nob)
+    oh_fh = oh_f.to(hdt)
+    oh_e = _one_hot(idxb[:, 2], Nce, dt)                 # (Nce, Nob)
+    # every row index and the extrinsics columns of every corner row
+    n_idx = torch.arange(N, device=dev)[:, None, None]
+    m_idx = torch.arange(2, device=dev)[None, :, None]
+    cole = (cl.e0 + 6 * torch.clamp_min(ice_c, 0))[:, None, None] + \
+        torch.arange(6, device=dev)
+    ext_valid = (ice_c >= 0).to(dt)[:, None, None]
+    oh_ci = (_one_hot(ici_c, Nci, dt).T[:, :, None] if Nci > 1
+             else None)                                  # (N, Nci, 1)
+    reg_cache = {}
+
+    def f(b, arrays, hessian=True):
+        params = split_packed_state(b, arrays, spec, scales=consts.state)
+        pk = rows_of.packed(params)
+        obs_w = torch.clamp_min(arrays["observations_board"][..., 2],
+                                0.0).reshape(-1)
+        if hessian:
+            r, J, Jw, wincols, (ix0, iy0, wx, wy) = \
+                rows_of.splined_board(pk, arrays)
+            Je = J["ext"] * ext_valid if s.do_optimize_extrinsics \
+                else torch.zeros_like(J["ext"])
+            Jf = J["frame"] if s.do_optimize_frames \
+                else torch.zeros_like(J["frame"])
+            Jwp = J["warp"] if spec.has_calobject_warp \
+                else torch.zeros_like(J["warp"])
+            JTr = {k: torch.einsum("nri,nr->ni", Jk, r)
+                   for k, Jk in (("ext", Je), ("frame", Jf), ("warp", Jwp))}
+        else:
+            r, JTr, (ix0, iy0, wx, wy) = rows_of.splined_board(
+                pk, arrays, jacobian=False)
+            JTr = dict(
+                ext=(JTr["ext"] * ext_valid[:, 0] if s.do_optimize_extrinsics
+                     else torch.zeros_like(JTr["ext"])),
+                frame=(JTr["frame"] if s.do_optimize_frames
+                       else torch.zeros_like(JTr["frame"])),
+                warp=(JTr["warp"] if spec.has_calobject_warp
+                      else torch.zeros_like(JTr["warp"])))
+
+        E = torch.sum(r * r)
+        # ---- gradient: separable knot part, per-observation pose parts
+        R = lm.order + 1
+        offs = torch.arange(R, device=dev)
+        rx = r.new_zeros((N, lm.Nx)).scatter_(
+            1, ix0[:, None] - 1 + offs, wx)
+        ry = r.new_zeros((N, lm.Ny)).scatter_(
+            1, iy0[:, None] - 1 + offs, wy)
+        f2r = r * pk["intr_full"][ici_c, :2] * obs_w[:, None]
+        rya = ry if oh_ci is None else (oh_ci * ry[:, None, :]).reshape(
+            N, Nci * lm.Ny)
+        gk = rya.T @ (rx[:, :, None] * f2r[:, None, :]).reshape(N, -1)
+        g_c = torch.cat([
+            gk.reshape(-1),
+            (oh_e @ JTr["ext"].reshape(Nob, HW, 6).sum(dim=1)).reshape(-1),
+            JTr["warp"].sum(dim=0)])
+        g_f = r.new_zeros((max(Nf, 1), 6))
+        g_f[:Nf] = oh_f @ JTr["frame"].reshape(Nob, HW, 6).sum(dim=1)
+        out = dict(E=E, g_c=g_c, g_f=g_f, g_p=r.new_zeros((max(Npv, 1), 3)),
+                   x_board=r.reshape(-1), x_point=r.new_zeros((0,)),
+                   x_tri=r.new_zeros((0,)))
+
+        # ---- H and C: the dense camera-system rows and their products
+        if hessian:
+            rows = torch.zeros((N, 2, cl.Nc), dtype=hdt, device=dev)
+            rows[n_idx, m_idx, wincols[:, None, :]] = Jw.to(hdt)
+            if Nce:
+                rows[n_idx, m_idx, cole] = Je.to(hdt)
+            rows[:, :, cl.w0:cl.w0 + 2] = Jwp.to(hdt)
+            rows2 = rows.reshape(2 * N, cl.Nc)
+            Hcc = rows2.T @ rows2
+            Jf_o = Jf.to(hdt).reshape(Nob, M2, 6)
+            Cf = r.new_zeros((max(Nf, 1), 6, cl.Nc), dtype=hdt)
+            Cf[:Nf] = (oh_fh @ torch.bmm(
+                Jf_o.transpose(1, 2), rows.reshape(Nob, M2, cl.Nc)
+            ).reshape(Nob, -1)).reshape(Nf, 6, cl.Nc)
+            Hff = r.new_zeros((max(Nf, 1), 6, 6), dtype=hdt)
+            Hff[:Nf] = (oh_fh @ torch.bmm(Jf_o.transpose(1, 2), Jf_o
+                                          ).reshape(Nob, 36)).reshape(
+                                              Nf, 6, 6)
+            out.update(Hcc=Hcc, Hff=Hff, Cf=Cf,
+                       Hpp=r.new_zeros((max(Npv, 1), 3, 3), dtype=hdt),
+                       Cp=r.new_zeros((max(Npv, 1), 3, cl.Nc), dtype=hdt))
+
+        # ---- regularization: linear in the control points, so its
+        # Jacobian is taken once
+        x_reg = r.new_zeros((0,))
+        if s.do_apply_regularization:
+            rreg = splined_regularization(
+                pk["intr_full"][:, 4:].reshape(Nci, lm.Ny, lm.Nx, 2),
+                *consts.reg_knots)                       # (Nci, nterms)
+            if not reg_cache:
+                Jreg = rows_of.regularization(pk)[1]     # (Nci, nterms, Nip)
+                reg_cache.update(J=Jreg, JtJ=torch.einsum(
+                    "cki,ckj->cij", Jreg, Jreg).to(hdt))
+            E = E + torch.sum(rreg * rreg)
+            g_c[:cl.e0] += torch.einsum("cki,ck->ci", reg_cache["J"],
+                                        rreg).reshape(-1)
+            if hessian:
+                for ci in range(Nci):
+                    i0 = cl.coli(ci)
+                    out["Hcc"][i0:i0 + cl.Nip, i0:i0 + cl.Nip] += \
+                        reg_cache["JtJ"][ci]
+            x_reg = rreg.reshape(-1)
+        if (s.do_apply_regularization_unity_cam01
+                and s.do_optimize_extrinsics and Nce > 0):
+            ru, Ju = rows_of.unity_cam01(pk)
+            E = E + ru * ru
+            e0 = cl.cole(0)
+            g_c[e0:e0 + 6] += Ju * ru
+            if hessian:
+                out["Hcc"][e0:e0 + 6, e0:e0 + 6] += \
+                    torch.outer(Ju, Ju).to(hdt)
+            x_reg = torch.cat([x_reg, ru[None]])
+        out.update(E=E, x_reg=x_reg)
+        return out
+
+    f.gradient = lambda b, arrays: f(b, arrays, hessian=False)
+    return f
+
+
+# ----------------------------------------------------------------------------
 # Schur-reduced damped step
 # ----------------------------------------------------------------------------
 
@@ -654,34 +968,42 @@ def schur_step(ne, lam, spec: ProblemSpec):
     frame and point blocks, D = Marquardt diag(JtJ) scaling.  Returns
     (delta_c, delta_f, delta_p, pred) where pred is the model's predicted
     decrease of E: pred = -g.d + lam d.D.d.  lam: a 0-d tensor or a
-    float."""
+    float.
+
+    The H and C blocks may be in a lower dtype than the gradient (float32
+    H under a float64 gradient): the factorizations and solves then run
+    in H's dtype, and delta and pred come back in the gradient's."""
     dt = ne["g_c"].dtype
+    hdt = ne["Hcc"].dtype
     lam = torch.as_tensor(lam, dtype=dt, device=ne["g_c"].device)
-    if dt == torch.float32:
+    if hdt == torch.float32:
         # f32-assembled H: its diag carries ~eps32 relative noise, so
         # H_red + lam*diag(H) goes indefinite once lam < ~2e-7; saturate
         # the EFFECTIVE damping (the LM control's lam may keep shrinking)
         lam = torch.clamp_min(lam, _F32_LAM_FLOOR)
+    lam_h = lam.to(hdt)
     Nf = spec.Nframes
     Npv = spec.Npoints_variable
     dd_c = _damping_diag(ne["Hcc"])
-    H_red = _damped(ne["Hcc"], lam, dd_c)
-    g_red = ne["g_c"]
+    H_red = _damped(ne["Hcc"], lam_h, dd_c)
+    g_red = ne["g_c"].to(hdt)
 
     if Nf:
         dd_f = _damping_diag(ne["Hff"][:Nf])
-        Af = _damped(ne["Hff"][:Nf], lam, dd_f)
+        Af = _damped(ne["Hff"][:Nf], lam_h, dd_f)
         Cf = ne["Cf"][:Nf]                                 # (Nf,6,Nc)
         gf = ne["g_f"][:Nf]
-        L_f, AinvC, Ainvg = _block_eliminate(Af, Cf, gf)
+        gf_h = gf.to(hdt)
+        L_f, AinvC, Ainvg = _block_eliminate(Af, Cf, gf_h)
         H_red = H_red - torch.einsum("fic,fid->cd", Cf, AinvC)
         g_red = g_red - torch.einsum("fic,fi->c", Cf, Ainvg)
     if Npv:
         dd_p = _damping_diag(ne["Hpp"][:Npv])
-        Ap = _damped(ne["Hpp"][:Npv], lam, dd_p)
+        Ap = _damped(ne["Hpp"][:Npv], lam_h, dd_p)
         Cp = ne["Cp"][:Npv]
         gp = ne["g_p"][:Npv]
-        L_p, AinvCp, Ainvgp = _block_eliminate(Ap, Cp, gp)
+        gp_h = gp.to(hdt)
+        L_p, AinvCp, Ainvgp = _block_eliminate(Ap, Cp, gp_h)
         H_red = H_red - torch.einsum("fic,fid->cd", Cp, AinvCp)
         g_red = g_red - torch.einsum("fic,fi->c", Cp, Ainvgp)
 
@@ -689,22 +1011,23 @@ def schur_step(ne, lam, spec: ProblemSpec):
     # leaves it; cholesky_ex does not raise and does not synchronize
     Lc, info = torch.linalg.cholesky_ex(H_red)
     Lc = torch.where(info == 0, Lc, torch.nan)
-    delta_c = -torch.cholesky_solve(g_red[:, None], Lc)[:, 0]
+    delta_c_h = -torch.cholesky_solve(g_red[:, None], Lc)[:, 0]
+    delta_c = delta_c_h.to(dt)
 
     pred = -torch.dot(ne["g_c"], delta_c) \
-        + lam * torch.dot(delta_c, dd_c * delta_c)
+        + lam * torch.dot(delta_c, dd_c.to(dt) * delta_c)
     delta_f = ne["g_c"].new_zeros((max(Nf, 1), 6))
     if Nf:
-        rhs = -(gf + torch.einsum("fic,c->fi", Cf, delta_c))
-        delta_f = cholesky_solve_factored(L_f, rhs[..., None])[..., 0]
+        rhs = -(gf_h + torch.einsum("fic,c->fi", Cf, delta_c_h))
+        delta_f = cholesky_solve_factored(L_f, rhs[..., None])[..., 0].to(dt)
         pred = pred - torch.sum(gf * delta_f) \
-            + lam * torch.sum(delta_f * (dd_f * delta_f))
+            + lam * torch.sum(delta_f * (dd_f.to(dt) * delta_f))
     delta_p = ne["g_c"].new_zeros((max(Npv, 1), 3))
     if Npv:
-        rhs = -(gp + torch.einsum("fic,c->fi", Cp, delta_c))
-        delta_p = cholesky_solve_factored(L_p, rhs[..., None])[..., 0]
+        rhs = -(gp_h + torch.einsum("fic,c->fi", Cp, delta_c_h))
+        delta_p = cholesky_solve_factored(L_p, rhs[..., None])[..., 0].to(dt)
         pred = pred - torch.sum(gp * delta_p) \
-            + lam * torch.sum(delta_p * (dd_p * delta_p))
+            + lam * torch.sum(delta_p * (dd_p.to(dt) * delta_p))
     return delta_c, delta_f, delta_p, pred
 
 
@@ -773,16 +1096,88 @@ def _effective_threshold(update_threshold, dtype, quiet=False):
     return update_threshold
 
 
+# the normal-equation entries a gradient-only evaluation refreshes
+_LAZY_H_GRAD_KEYS = ("E", "g_c", "g_f", "g_p",
+                     "x_board", "x_point", "x_tri", "x_reg")
+
+
+def _make_grad_fn(spec: ProblemSpec):
+    """E, the gradient and the residuals in ONE reverse pass: g = J^T x
+    from autograd of 0.5 |x(b)|^2 through the full residual function,
+    split into the solver's block layout.  The lazy-Hessian mode's
+    gradient-only evaluation wherever the normal equations have none of
+    their own."""
+    cl = _CLayout(spec)
+    Nf = spec.Nframes
+    Npv = spec.Npoints_variable
+    nb = spec.num_measurements_boards
+    npt = spec.num_measurements_points
+    nt = spec.num_measurements_points_triangulated
+
+    def fn(b, arrays):
+        with torch.enable_grad():
+            bb = b.detach().requires_grad_(True)
+            x = residuals_from_packed(bb, arrays, spec)
+            (gb,) = torch.autograd.grad(0.5 * torch.sum(x * x), bb)
+        x = x.detach()
+        g_c = b.new_zeros(cl.Nc)
+        i = 0
+        if spec.num_states_intrinsics:
+            g_c[:cl.e0] = gb[i:i + cl.e0]
+            i += cl.e0
+        if spec.num_states_extrinsics:
+            g_c[cl.e0:cl.w0] = gb[i:i + cl.w0 - cl.e0]
+            i += cl.w0 - cl.e0
+        g_f = b.new_zeros((max(Nf, 1), 6))
+        if spec.num_states_frames:
+            g_f[:Nf] = gb[i:i + 6 * Nf].reshape(Nf, 6)
+            i += 6 * Nf
+        g_p = b.new_zeros((max(Npv, 1), 3))
+        if spec.num_states_points:
+            g_p[:Npv] = gb[i:i + 3 * Npv].reshape(Npv, 3)
+            i += 3 * Npv
+        if spec.num_states_calobject_warp:
+            g_c[cl.w0:cl.w0 + 2] = gb[i:i + 2]
+        return dict(E=torch.sum(x * x), g_c=g_c, g_f=g_f, g_p=g_p,
+                    x_board=x[:nb], x_point=x[nb:nb + npt],
+                    x_tri=x[nb + npt:nb + npt + nt],
+                    x_reg=x[nb + npt + nt:])
+
+    return fn
+
+
+# the lazy-Hessian refresh interval of a splined float32 solve on the card
+LAZY_H_K_SPLINED_F32 = 4
+
+
+def _lazy_h_K(spec: ProblemSpec, dtype, device):
+    """The default lazy-Hessian interval: K = 4 for a splined model's
+    float32 solve on the card (its H assembly is most of the iteration),
+    0 (exact H every iteration) otherwise, as the JAX package has it on an
+    accelerator and on the CPU."""
+    if spec.is_splined and dtype == torch.float32 \
+            and torch.device(device).type == "cuda":
+        return LAZY_H_K_SPLINED_F32
+    return 0
+
+
 def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
              max_iterations=300, update_threshold=1e-7, dtype=None,
-             quiet=False, lam0=1e-4, ftol=None):
+             quiet=False, lam0=1e-4, ftol=None, lazy_K=None, h32=False):
     """Levenberg-Marquardt to convergence: the accept, lambda, small-step,
     16-iteration plateau and lambda>1e12 rules of the JAX package's
     device-resident loop, as one Python loop over tensors on the device of
     `arrays`.  Each iteration reads one scalar (accept and done).
 
+    lazy_K > 0 is the lazy-Hessian mode: the H and C blocks refresh only
+    on the (K+1)-th accepted step after the last refresh, while E, the
+    gradient and the residuals are exact on every iteration (inexact
+    Newton with a stale model; the gain-ratio control absorbs its error).
+    None takes _lazy_h_K's default.  h32: the splined window assembly's
+    float32 H under a float64 gradient.
+
     Returns (b, E, niter, ne) with E a 0-d tensor and ne the normal
-    equations at b (residual vectors included)."""
+    equations at b (residual vectors included; H possibly stale)."""
     if dtype is not None:
         arrays = _cast_arrays(arrays, dtype)
         b0 = b0.to(dtype)
@@ -791,10 +1186,13 @@ def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
         # f32 grinds at its ~1e-7 relative-E precision floor; f64 at
         # roundoff.  Terminate when accepted improvements fall below it.
         ftol = 1e-5 if b0.dtype == torch.float32 else 1e-6
+    if lazy_K is None:
+        lazy_K = _lazy_h_K(spec, b0.dtype, b0.device)
     # benchmark mode (both thresholds exactly 0): run the full
     # max_iterations, no plateau or trust-region-collapse exits
     benchmark = eff_threshold <= 0.0 and ftol <= 0.0
-    ne_fn = build_normal_equations(spec, arrays, static_idx)
+    ne_fn = build_normal_equations(spec, arrays, static_idx, h32=h32)
+    grad_fn = getattr(ne_fn, "gradient", None) or _make_grad_fn(spec)
 
     with torch.no_grad():
         b = b0
@@ -803,11 +1201,19 @@ def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
         nu = torch.full((), 2.0, dtype=b.dtype, device=b.device)
         E_ref, it_ref = ne["E"], 0
         it = 0
+        # accepted steps since the last H refresh
+        age = 0
         while it < max_iterations:
             dc, df, dp, pred = schur_step(ne, lam, spec)
             db = _delta_to_b(dc, df, dp, spec)
             b_try = b + db
-            ne_try = ne_fn(b_try, arrays)
+            refresh = age >= lazy_K
+            if refresh:
+                ne_try = ne_fn(b_try, arrays)
+            else:
+                ne_try = dict(ne)                  # the stale H blocks
+                new = grad_fn(b_try, arrays)
+                ne_try.update({k: new[k] for k in _LAZY_H_GRAD_KEYS})
             E = ne["E"]
             E_try = ne_try["E"]
             rho = torch.where(pred > 0, (E - E_try) / pred, -1.0)
@@ -840,6 +1246,7 @@ def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
                          + 2 * done.to(torch.int32)).item())
             if flags & 1:
                 b, ne = b_try, ne_try
+                age = 0 if refresh else age + 1
             it += 1
             if flags & 2:
                 break

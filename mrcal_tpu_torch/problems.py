@@ -5,8 +5,8 @@ Ports the JAX package's problem builders so that the port's own tools
 ``__graft_entry__._make_problem``, ``make_perfect_observations`` is
 ``synthetic_data.make_perfect_observations`` (board and point branches),
 ``perturbed_oi`` is ``bench._perturbed_oi``, and ``opencv8_1cam``,
-``opencv8_4cam``, ``rig16cam`` and ``sfm_triangulated`` are the bench's
-configurations of those names.
+``opencv8_4cam``, ``splined_30x18``, ``rig16cam`` and ``sfm_triangulated``
+are the bench's configurations of those names.
 
 The builders draw from the GLOBAL numpy RNG in exactly the JAX package's
 order (``np.random.seed(0)``, then ``randn`` for the frames, then ``randn``
@@ -39,6 +39,14 @@ OPENCV8_1CAM = dict(Ncameras=1, Nframes=84, model="LENSMODEL_OPENCV8",
 # 14x14 board (Nmeasurements 131752, Nstate 572)
 OPENCV8_4CAM = dict(Ncameras=4, Nframes=84, model="LENSMODEL_OPENCV8",
                     W=14, H=14)
+
+# bench.py's splined_30x18 configuration: the canonical splined model, one
+# camera with its core locked, 84 frames of a 14x14 board (Nmeasurements
+# 34008 = 32928 board + 1080 regularization, Nstate 1586 = 1080 + 84*6 + 2)
+SPLINED_30X18 = dict(Ncameras=1, Nframes=84,
+                     model="LENSMODEL_SPLINED_STEREOGRAPHIC_order=3_Nx=30"
+                           "_Ny=18_fov_x_deg=150",
+                     W=14, H=14, do_optimize_intrinsics_core=False)
 
 # bench.py's rig16cam configuration: a 4x4 rig of OPENCV8 cameras on a
 # 0.15 m grid, all facing the board, and 40 tame poses of a 14x14 board
@@ -165,6 +173,13 @@ def opencv8_1cam():
 def opencv8_4cam():
     """The bench's opencv8_4cam optimization_inputs."""
     return _bench_board(**OPENCV8_4CAM)
+
+
+def splined_30x18():
+    """The bench's splined_30x18 optimization_inputs: the control points
+    start at 0 (a plain stereographic projection) and the observations
+    come from that model."""
+    return _bench_board(**SPLINED_30X18)
 
 
 def _rig16_frames(Nframes):

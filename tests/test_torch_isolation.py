@@ -1,4 +1,5 @@
-"""The port stands alone: importing mrcal_tpu_torch loads neither jax nor
+"""The port stands alone: importing mrcal_tpu_torch (the splined path
+included, and building the splined bench problem) loads neither jax nor
 mrcal_tpu, and no module of the port (nor chip_smoke.py) imports either."""
 
 import ast
@@ -29,6 +30,12 @@ def test_import_loads_no_jax():
     code = ("import sys; before = set(sys.modules); "
             "import mrcal_tpu_torch, mrcal_tpu_torch.problems, "
             "mrcal_tpu_torch.convert, mrcal_tpu_torch.ops; "
+            "from mrcal_tpu_torch.lensmodels import splined_deltau; "
+            "from mrcal_tpu_torch.optimize.solver import "
+            "build_normal_equations_splined, lm_solve; "
+            "from mrcal_tpu_torch.optimize.jacobian import "
+            "optimizer_callback; "
+            "mrcal_tpu_torch.problems.splined_30x18(); "
             "bad = sorted(m for m in set(sys.modules) - before "
             f"if m.split('.')[0] in {FORBIDDEN!r}); "
             "print(bad); sys.exit(1 if bad else 0)")

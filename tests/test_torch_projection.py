@@ -122,9 +122,7 @@ def test_project_core_values_and_jacobians(model):
 
 
 @pytest.mark.parametrize("model", ["LENSMODEL_CAHVOR",
-                                   "LENSMODEL_CAHVORE_linearity=0.00",
-                                   "LENSMODEL_SPLINED_STEREOGRAPHIC_order=3"
-                                   "_Nx=8_Ny=6_fov_x_deg=120"])
+                                   "LENSMODEL_CAHVORE_linearity=0.00"])
 def test_unported_models_raise(model):
     n = lensmodel_num_params(model)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

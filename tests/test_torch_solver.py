@@ -214,8 +214,7 @@ def test_optimize_without_device_needs_a_card(problems):
 
 @pytest.mark.parametrize("option", [
     dict(mesh=2),
-    dict(lensmodel="LENSMODEL_SPLINED_STEREOGRAPHIC_order=3_Nx=11_Ny=8"
-                   "_fov_x_deg=120"),
+    dict(lensmodel="LENSMODEL_CAHVORE_linearity=0.00"),
     dict(verbose=True),
     dict(lensmodel="LENSMODEL_CAHVOR")])
 def test_optimize_raises_on_what_the_slice_does_not_cover(problems, option):
