@@ -60,14 +60,40 @@ nonzero:
    triangulate: the six two-view wrappers (with their gradients),
    rotate_point_R and unproject_core (PINHOLE, OPENCV8) on the card, the
    wrappers' default device, against the CPU, to 1e-12.
-6. kernel times: each kernel at the shapes of phase 3 in f64 (CUDA
+6. batch: optimize_batch runs many problems of one structure in
+   lockstep, in f64 (a short warm-up, then a timed solve with the
+   kernels' launch counts and shapes and the peak memory):
+   fleet: 64 units of opencv8_1cam (unit 0 the main path's problem;
+   unit i >= 1 perturbed_oi(seed=1+i) with 0.2 px noise on its board
+   x, y; units 48-63 each miss two views, so the fleet goes through
+   pad_problems_to_common_structure).  Unit 0 is held to the main path's
+   rms and iteration gates; one fused launch at (5376, 6, 15) and one
+   back-substitution at (5376, 6, 1) per lockstep iteration; batches of
+   1 and 8 units timed, the batch of 1 held to optimize()'s E at 1e-12.
+   Then the fleet again, run to the end of its tails (ftol = 1e-10, see
+   DEEP_KW):
+   units 0, 1, 48 and 63 (the last two without their missing views) are
+   solved alone by optimize() and held to their batch results (E = sum
+   x^2 to 1e-9 relative, b_packed to 1e-5).  A mixed batch: unit 0 held
+   to the main path's mixed gate, and every unit's difference from its
+   f64 rms printed (PERF.md: where the flat units stop differs by up to
+   3.5e-5 px between the two pipelines).
+   rig16cam x 8: unit 0 held to the rig16cam gate; (320, 6, 285) and
+   (320, 6, 1), one launch each per lockstep iteration.
+   sfm_triangulated x 4: unit 0 held to the sfm_triangulated rms, ending
+   on the small-step rule (SFM_BATCH_NITER_RANGE); no batched-Cholesky
+   launch.
+   Each prints its wall, lockstep and per-unit iterations, problems per
+   second, ms per lockstep iteration, the peak memory and P times the
+   single solve's wall.
+7. kernel times: each kernel at the shapes of phase 3 in f64 (CUDA
    events, and device time per launch from torch.profiler) beside its
    plain version, the PyTorch library call and its bound, and beside the
    launch floor (a one-element torch.add).
-7. profile: one more f64 solve of each configuration under
-   torch.profiler (device time by kernel, launches per iteration, busy
-   share).
-8. the last line: {"ok": true, "device": {...}}.
+8. profile: one more f64 solve of each configuration, and of the fleet,
+   under torch.profiler (device time by kernel, launches per iteration,
+   busy share).
+9. the last line: {"ok": true, "device": {...}}.
 
 The timed solves come before any profiler session or kernel timing, so
 that those do not weigh on the solves' wall time.
@@ -131,6 +157,36 @@ KERNEL_SOURCE = "mrcal_tpu_torch/csrc/batched_cholesky.cu"
 LAUNCHED = ("cholesky_factor_solve", "cholesky_solve_factored",
             "cholesky_factor")
 SOLVE_KW = dict(update_threshold=1e-7, max_iterations=2000)
+# the batch phases: the fleet's size, its units that miss two views each,
+# and the board noise of units i >= 1 (px)
+FLEET_P = 64
+FLEET_DROPPED_FROM = 48
+FLEET_NOISE_PX = 0.2
+FLEET_CHECKED_UNITS = (0, 1, 48, 63)
+RIG16_BATCH_P = 8
+SFM_BATCH_P = 4
+# a unit's batch result against its own optimize(): E = sum x^2 relative,
+# b_packed absolute (packed units); a batch of one against optimize()
+BATCH_E_RTOL = 1e-9
+BATCH_B_ATOL = 1e-5
+BATCH_P1_E_RTOL = 1e-12
+# A unit's batch and single solves are held against each other at the
+# end of their tails.  Under the default ftol (1e-6) many fleet units end
+# on the 16-iteration plateau rule inside a linearly converging tail
+# (lambda at its 1e-11 floor, E falling ~13 % per iteration), up to 6.6e-6
+# in E above the tail's end, and where they stop follows roundoff: unit 63
+# alone and in the batch stopped 6.9e-9 apart in E on the card.  ftol =
+# 1e-10 ends a tail within ~1e-10 of its end, while E's evaluation noise
+# (~1e-13 relative) stays far below the window's threshold; ftol = 0 lets
+# a unit grind on that noise (1889 iterations on the card).  PERF.md §6.
+DEEP_KW = dict(SOLVE_KW, ftol=1e-10)
+# sfm_triangulated x 4: the last steps' predicted decrease (~3e-23) is
+# far below E's evaluation noise (~2e-18), so accepting them is a coin
+# flip and the count after the last large step follows roundoff (alone,
+# units 0-3 take 6, 8, 15 and 14 iterations; in the batch 11, 6, 6, 9):
+# unit 0 is held to ending on the small-step rule, before the first
+# plateau window closes
+SFM_BATCH_NITER_RANGE = (SFM_NITER_RANGE[0], 15)
 
 
 def fail(msg):
@@ -287,9 +343,14 @@ MAIN_SHAPES = [(84, 6, 15), (84, 6, 1)]
 CAM4_SHAPES = [(84, 6, 69)]                  # K = 4*12 + 3*6 + 2 + 1
 RIG16_SHAPES = [(40, 6, 285), (40, 6, 1)]
 SPLINED_SHAPES = [(84, 6, 1083)]             # K = 2*30*18 + 2 + 1
+# the batched Schur step: every problem's frame blocks in one launch
+FLEET_SHAPES = [(FLEET_P * 84, 6, 15), (FLEET_P * 84, 6, 1)]
+RIG16_BATCH_SHAPES = [(RIG16_BATCH_P * 40, 6, 285),
+                      (RIG16_BATCH_P * 40, 6, 1)]
 LARGE_SHAPES = [(1 << 20, 3, 4), (1 << 18, 6, 15), (1 << 20, 3, 1),
                 (1 << 18, 6, 1)]
 CHECK_SHAPES = (MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES + SPLINED_SHAPES
+                + FLEET_SHAPES + RIG16_BATCH_SHAPES
                 + [(131, 6, 33), (131, 3, 4), (0, 6, 15), (70000, 6, 0)]
                 + LARGE_SHAPES)
 
@@ -372,8 +433,10 @@ def time_kernels(torch, card):
 
     shapes = dict(
         cholesky_factor_solve=(MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
-                               + SPLINED_SHAPES + LARGE_SHAPES),
+                               + SPLINED_SHAPES + FLEET_SHAPES
+                               + RIG16_BATCH_SHAPES + LARGE_SHAPES),
         cholesky_solve_factored=(MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
+                                 + FLEET_SHAPES + RIG16_BATCH_SHAPES
                                  + LARGE_SHAPES),
         cholesky_factor=[(84, 6, 0), (1 << 20, 3, 0), (1 << 18, 6, 0)])
     results = {name: [] for name in shapes}
@@ -798,25 +861,279 @@ def phase_triangulate(torch):
     return worst
 
 
+def batch_units(base, P, noise_px):
+    """Unit i of a batch: perturbed_oi(base, seed=1+i), and for i >= 1
+    N(0, noise_px) on its board x, y from default_rng(1000 + i)."""
+    from mrcal_tpu_torch import problems
+    units = []
+    for i in range(P):
+        oi = problems.perturbed_oi(base, seed=1 + i)
+        if i and noise_px:
+            obs = oi["observations_board"]
+            obs[..., :2] += np.random.default_rng(1000 + i).normal(
+                0.0, noise_px, obs[..., :2].shape)
+        units.append(oi)
+    return units
+
+
+def drop_views(oi, views):
+    """A unit that misses some board views (as tests/test_optimize_batch.py
+    drops them)."""
+    keep = np.ones(len(oi["indices_frame_camintrinsics_camextrinsics"]),
+                   bool)
+    keep[views] = False
+    oi["observations_board"] = oi["observations_board"][keep]
+    oi["indices_frame_camintrinsics_camextrinsics"] = \
+        oi["indices_frame_camintrinsics_camextrinsics"][keep]
+
+
+class KernelShapes:
+    """Records the (B, n, K) shape of each call of the Schur step's two
+    kernel wrappers, by wrapper; the wrappers and their counts stay as
+    they are."""
+
+    NAMES = ("cholesky_factor_solve", "cholesky_solve_factored")
+
+    def __enter__(self):
+        from mrcal_tpu_torch.optimize import solver
+        self.solver = solver
+        self.saved = {n: getattr(solver, n) for n in self.NAMES}
+        self.shapes = {n: [] for n in self.NAMES}
+        for n, fn in self.saved.items():
+            def rec(A, rhs, _n=n, _fn=fn):
+                self.shapes[_n].append(tuple(rhs.shape))
+                return _fn(A, rhs)
+            setattr(solver, n, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.solver, n, fn)
+
+
+def _E(stats):
+    return float(np.sum(np.asarray(stats["x"]) ** 2))
+
+
+def timed_batch(torch, phase, units, single_wall, precision="f64",
+                solve_kw=SOLVE_KW):
+    """A warm-up, then one timed optimize_batch of `units`, with the
+    kernels' launch counts and shapes and the peak memory, printed beside
+    P times the single solve's wall."""
+    from mrcal_tpu_torch import optimize_batch
+    from mrcal_tpu_torch.ops import batched_cholesky as bc
+    P = len(units)
+    t0 = time.perf_counter()
+    # (mixed: its f32 phase alone, as the f64 polish runs its own count)
+    optimize_batch([_copy(u) for u in units],
+                   precision="f32" if precision == "mixed" else precision,
+                   update_threshold=SOLVE_KW["update_threshold"],
+                   max_iterations=2)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    batch = [_copy(u) for u in units]
+    torch.cuda.reset_peak_memory_stats()
+    bc.reset_launches()
+    with KernelShapes() as ks:
+        t0 = time.perf_counter()
+        stats = optimize_batch(batch, precision=precision, **solve_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(bc.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n = np.array([s["niterations"] for s in stats])
+    lockstep = int(n.max())
+    summary = dict(
+        P=P, precision=precision, wall_s=wall, warmup_s=warm,
+        lockstep_iterations=lockstep,
+        unit_iterations=dict(min=int(n.min()), median=float(np.median(n)),
+                             max=lockstep),
+        problems_per_s=P / wall, ms_per_lockstep_iteration=wall / lockstep
+        * 1e3, peak_memory_bytes=peak, launches=launches,
+        shapes={k: sorted(set(v)) for k, v in ks.shapes.items()},
+        single_wall_s=single_wall,
+        P_times_single_wall_s=(P * single_wall if single_wall else None))
+    log(f"[{phase}] {precision} batch of {P}"
+        + ("" if solve_kw is SOLVE_KW else f" ({solve_kw})")
+        + f": {wall:.4f} s wall (warm-up "
+        f"{warm:.2f} s), {lockstep} lockstep iterations, per unit "
+        f"{n.min()} / {np.median(n):g} / {n.max()} (min / median / max); "
+        f"{P / wall:.2f} problems/s, {wall / lockstep * 1e3:.3f} ms per "
+        f"lockstep iteration; peak memory {peak / 2**30:.3f} GiB; launches "
+        f"{launches}, shapes {summary['shapes']}"
+        + (f"; P x single solve {P * single_wall:.4f} s"
+           if single_wall else ""))
+    for i, s in enumerate(stats):
+        if not (np.isfinite(s["x"]).all() and np.isfinite(s["b_packed"]).all()
+                and np.isfinite(s["rms_reproj_error__pixels"])):
+            fail(f"[{phase}] unit {i}: non-finite result")
+    return batch, stats, summary
+
+
+def check_batch_launches(phase, summary, shapes):
+    """One fused launch at shapes[0] and one back-substitution at
+    shapes[1] per lockstep iteration; none at all where shapes is
+    None."""
+    launches = summary["launches"]
+    if shapes is None:
+        if any(launches.values()):
+            fail(f"[{phase}] launched batched-Cholesky kernels {launches}; "
+                 "this path has no frame or point blocks")
+        return
+    check_launches_per_iteration(phase, launches,
+                                 summary["lockstep_iterations"])
+    want = dict(zip(KernelShapes.NAMES, ([tuple(shapes[0])],
+                                         [tuple(shapes[1])])))
+    if summary["shapes"] != want:
+        fail(f"[{phase}] the kernels ran at {summary['shapes']}, not "
+             f"{want}")
+
+
+def check_unit0(phase, stats, rms_ref, rms_tol, niter_range):
+    rms = stats[0]["rms_reproj_error__pixels"]
+    niter = stats[0]["niterations"]
+    log(f"[{phase}] unit 0: rms {rms!r} px in {niter} iterations "
+        f"(gate {rms_ref!r} +- {rms_tol:g}"
+        + (f", {niter_range[0]}-{niter_range[1]} iterations)"
+           if niter_range else ")"))
+    if not abs(rms - rms_ref) <= rms_tol:
+        fail(f"[{phase}] unit 0 rms {rms!r} is not within {rms_tol} of "
+             f"{rms_ref!r}")
+    if niter_range and not niter_range[0] <= niter <= niter_range[1]:
+        fail(f"[{phase}] unit 0 took {niter} iterations")
+
+
+def phase_batch_fleet(torch, single_wall):
+    """64 opencv8_1cam units, padded to one structure, in lockstep."""
+    from mrcal_tpu_torch import (optimize, optimize_batch,
+                                 pad_problems_to_common_structure, problems)
+    from mrcal_tpu_torch.optimize import spec_from_inputs
+    phase = "batch fleet"
+    t0 = time.perf_counter()
+    units = batch_units(problems.opencv8_1cam(), FLEET_P, FLEET_NOISE_PX)
+    for i in range(FLEET_DROPPED_FROM, FLEET_P):
+        j = i - FLEET_DROPPED_FROM
+        drop_views(units[i], [j, j + 42])
+    fleet = pad_problems_to_common_structure(units)
+    spec = spec_from_inputs(**fleet[0])
+    ncorners = sum(np.asarray(u["observations_board"]).shape[0]
+                   for u in fleet) * 14 * 14
+    log(f"[{phase}] {FLEET_P} units built and padded in "
+        f"{time.perf_counter() - t0:.2f} s: {FLEET_P} x "
+        f"{spec.Nmeasurements} measurements, {ncorners} corners, Nstate "
+        f"{spec.Nstate}")
+    if (spec.Nmeasurements, spec.Nstate, ncorners) != (32938, 518,
+                                                       FLEET_P * 16464):
+        fail(f"[{phase}] the fleet has the wrong shape")
+
+    small = {}
+    for P in (1, 8):
+        _, st, small[P] = timed_batch(torch, f"{phase} P={P}", fleet[:P],
+                                      single_wall)
+        if P == 1:
+            stats_p1 = st
+    batch, stats, summary = timed_batch(torch, phase, fleet, single_wall)
+    check_batch_launches(phase, summary, FLEET_SHAPES)
+    check_unit0(phase, stats, F64_RMS, F64_RMS_TOL, F64_NITER_RANGE)
+    s0 = optimize(precision="f64", **SOLVE_KW, **_copy(units[0]))
+    e1 = abs(_E(stats_p1[0]) - _E(s0)) / _E(s0)
+    log(f"[{phase}] batch of 1 against optimize(): E rel diff {e1:.3e} "
+        f"(tol {BATCH_P1_E_RTOL:g})")
+    if not e1 <= BATCH_P1_E_RTOL:
+        fail(f"[{phase}] the batch of one differs from optimize()")
+
+    # to the end of the tails: the batch against units solved alone
+    _, stats_deep, deep = timed_batch(torch, phase, fleet, single_wall,
+                                      solve_kw=DEEP_KW)
+    alone = dict(E_rel_batch_of_one=e1)
+    for i in FLEET_CHECKED_UNITS:
+        s = optimize(precision="f64", **DEEP_KW, **_copy(units[i]))
+        e_rel = abs(_E(stats_deep[i]) - _E(s)) / _E(s)
+        db = float(np.abs(stats_deep[i]["b_packed"] - s["b_packed"]).max())
+        alone[i] = dict(E_rel=e_rel, b_abs=db, niterations=s["niterations"],
+                        niterations_batch=stats_deep[i]["niterations"])
+        log(f"[{phase}] unit {i} alone, ftol 1e-10: {s['niterations']} "
+            f"iterations (batch {stats_deep[i]['niterations']}), E rel diff "
+            f"{e_rel:.3e} (tol {BATCH_E_RTOL:g}), b_packed max diff "
+            f"{db:.3e} (tol {BATCH_B_ATOL:g})")
+        if not (e_rel <= BATCH_E_RTOL and db <= BATCH_B_ATOL):
+            fail(f"[{phase}] unit {i}: the batch and optimize() disagree")
+
+    # mixed, as the main path runs it: unit 0 to the main path's gate; the
+    # other units' differences from their f64 results are printed
+    _, stats_mx, mixed = timed_batch(torch, phase, fleet, single_wall,
+                                     precision="mixed")
+    diffs = np.array([a["rms_reproj_error__pixels"]
+                      - b["rms_reproj_error__pixels"]
+                      for a, b in zip(stats_mx, stats)])
+    pol = [s["niterations_polish"] for s in stats_mx]
+    over = [int(i) for i in np.nonzero(np.abs(diffs) > MIXED_RMS_TOL)[0]]
+    rms0 = stats_mx[0]["rms_reproj_error__pixels"]
+    log(f"[{phase}] mixed: unit 0 rms {rms0!r} px (gate {F64_RMS!r} +- "
+        f"{MIXED_RMS_TOL:g}, {diffs[0]:+.3e} px from its f64 rms); all "
+        f"units' rms minus f64 rms: min {diffs.min():+.3e}, median "
+        f"{np.median(diffs):+.3e}, max {diffs.max():+.3e} px; beyond "
+        f"{MIXED_RMS_TOL:g} px: units {over}; f64 polish iterations per "
+        f"unit {min(pol)} / {np.median(pol):g} / {max(pol)}")
+    if not (abs(rms0 - F64_RMS) <= MIXED_RMS_TOL
+            and abs(diffs[0]) <= MIXED_RMS_TOL):
+        fail(f"[{phase}] mixed unit 0 rms {rms0!r}")
+    mixed.update(rms_diff_from_f64=dict(
+        min=float(diffs.min()), median=float(np.median(diffs)),
+        max=float(diffs.max())), units_beyond_tol=over)
+    summary.update(P1=small[1], P8=small[8], deep_ftol_1e_10=deep,
+                   alone=alone, mixed=mixed)
+    return fleet, summary
+
+
+def phase_batch_rig16(torch, single_wall):
+    """8 rig16cam units in lockstep: the frame blocks at K = 285."""
+    from mrcal_tpu_torch import problems
+    phase = "batch rig16cam x 8"
+    units = batch_units(problems.rig16cam(), RIG16_BATCH_P, FLEET_NOISE_PX)
+    _, stats, summary = timed_batch(torch, phase, units, single_wall)
+    check_batch_launches(phase, summary, RIG16_BATCH_SHAPES)
+    check_unit0(phase, stats, RIG16_F64_RMS, RIG16_F64_RMS_TOL, None)
+    return units, summary
+
+
+def phase_batch_sfm(torch, single_wall):
+    """4 sfm_triangulated units in lockstep: no block kernel."""
+    from mrcal_tpu_torch import problems
+    phase = "batch sfm_triangulated x 4"
+    units = batch_units(problems.sfm_triangulated(), SFM_BATCH_P, 0.0)
+    _, stats, summary = timed_batch(torch, phase, units, single_wall)
+    check_batch_launches(phase, summary, None)
+    check_unit0(phase, stats, SFM_F64_RMS, SFM_F64_RMS * SFM_F64_RMS_REL_TOL,
+                SFM_BATCH_NITER_RANGE)
+    return units, summary
+
+
 def phase_profile(torch, phase, oi, wall_unprofiled):
     """Where the time of the f64 solve goes: one more solve under
     torch.profiler; device time by kernel, launches per iteration, the
     device's busy share of the (unprofiled) timed solve, and the device
-    time per launch of each batched-Cholesky kernel."""
+    time per launch of each batched-Cholesky kernel.  oi: one problem, or
+    a list of them, solved as one batch (iterations are then the lockstep
+    iterations)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from mrcal_tpu_torch import optimize
+    from mrcal_tpu_torch import optimize, optimize_batch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        stats = optimize(precision="f64", **SOLVE_KW, **_copy(oi))
+        if isinstance(oi, list):
+            niter = max(s["niterations"] for s in optimize_batch(
+                [_copy(u) for u in oi], precision="f64", **SOLVE_KW))
+        else:
+            niter = optimize(precision="f64", **SOLVE_KW,
+                             **_copy(oi))["niterations"]
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    niter = stats["niterations"]
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     nlaunch = sum(e.count for e in kernels)
     log(f"[profile] {phase} f64 solve: {niter} iterations, "
@@ -829,8 +1146,7 @@ def phase_profile(torch, phase, oi, wall_unprofiled):
     for e in top[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"{e.count:6d}x  {e.key[:100]}")
-    host = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU),
+    host = sorted((e for e in averages if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
     log(f"[profile] {phase} host self time by op:")
     for e in host[:12]:
@@ -875,6 +1191,16 @@ def main():
                         ("splined_30x18", phase_splined)):
         others[name] = phase(torch)
         stamp(name)
+    batches = {}
+    for name, phase, wall in (
+            ("fleet_64x_opencv8_1cam", phase_batch_fleet,
+             main_path["f64"]["wall_s"]),
+            ("rig16cam_x8", phase_batch_rig16,
+             others["rig16cam"][1]["wall_s"]),
+            ("sfm_triangulated_x4", phase_batch_sfm,
+             others["sfm_triangulated"][1]["wall_s"])):
+        batches[name] = phase(torch, wall)
+        stamp(name)
     callbacks = {name: phase_callback(torch, name, oi) for name, oi in (
         ("sfm_triangulated", others["sfm_triangulated"][0]),
         ("opencv8_1cam", oi_main),
@@ -896,15 +1222,21 @@ def main():
         summary["profile"], _ = phase_profile(torch, name, oi,
                                               summary["wall_s"])
         stamp(f"{name} profile")
+    fleet, summary = batches["fleet_64x_opencv8_1cam"]
+    summary["profile"], _ = phase_profile(torch, "batch fleet", fleet,
+                                          summary["wall_s"])
+    stamp("batch fleet profile")
     for e in entries:
         e["launches"] = main_path["f64"]["launches"][e["name"]]
         e["launches_by_path"] = dict(
             opencv8_1cam=e["launches"],
             **{name: summary["launches"][e["name"]]
-               for name, (_, summary) in others.items()})
+               for name, (_, summary) in others.items()},
+            **{name: summary["launches"][e["name"]]
+               for name, (_, summary) in batches.items()})
         e["device_us_per_launch_main_path"] = per_launch[e["name"]]
     log(f"[main] summary {json.dumps(main_path)}")
-    for name, (_, summary) in others.items():
+    for name, (_, summary) in list(others.items()) + list(batches.items()):
         log(f"[{name}] summary {json.dumps(summary)}")
     log(f"[callback] summary {json.dumps(callbacks)}")
     log(f"[triangulate] summary {json.dumps(triangulate)}")

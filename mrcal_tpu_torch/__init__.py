@@ -5,7 +5,8 @@ It covers parametric chessboard, discrete-point and triangulated-point
 calibrations solved end to end: layout and packing, the projection chain
 and its inverse, two-view triangulation, the normal equations, the Schur
 step with its hand-written Hopper batched-Cholesky kernel (``ops/``), the
-LM loop, ``optimize()`` (with ``check_gradient``) and
+LM loop, ``optimize()`` (with ``check_gradient``), batched solves
+(``optimize_batch``, ``pad_problems_to_common_structure``) and
 ``optimizer_callback`` with its sparse Jacobian.
 
 Entry points run on the CUDA card unless the caller passes
@@ -21,7 +22,8 @@ from .lensmodels import (  # noqa: F401
     unproject_core,
 )
 from .optimize import (  # noqa: F401
-    optimize, optimize_batch, optimizer_callback)
+    optimize, optimize_batch, optimizer_callback,
+    pad_problems_to_common_structure)
 from .poseutils import (  # noqa: F401
     skew_symmetric,
     rotate_point_R,

@@ -21,4 +21,5 @@ from .layout import (  # noqa: F401
     decode_observation_indices_points_triangulated,
 )
 from .jacobian import optimizer_callback  # noqa: F401
-from .solver import optimize, optimize_batch  # noqa: F401
+from .solver import (  # noqa: F401
+    optimize, optimize_batch, pad_problems_to_common_structure)

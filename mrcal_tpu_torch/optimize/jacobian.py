@@ -23,7 +23,7 @@ from ..lensmodels import require_ported
 from .layout import ProblemSpec, normalize_inputs, spec_from_inputs
 from .residuals import (arrays_from_inputs, pack_params, params_from_arrays,
                         residuals_from_packed, split_packed_state)
-from .solver import _ObservationRows, _splined_fast_path_ok
+from .solver import _ObservationRows, _batch_of_one, _splined_fast_path_ok
 
 # check_gradient: the central-difference step (packed units), and the
 # number of state columns checked at most (a random subset beyond it)
@@ -42,8 +42,14 @@ def _sparse_jacobian(b, arrays, spec: ProblemSpec):
     0 stay stored; the regularization rows store their nonzeros only."""
     s = spec.selections
     rows_of = _ObservationRows(spec, arrays)
-    pk = rows_of.packed(split_packed_state(b, arrays, spec,
-                                           scales=rows_of.consts.state))
+    # the rows take a batch of problems: this one as a batch of one
+    arrays1 = _batch_of_one(arrays)
+    pk1 = rows_of.packed(split_packed_state(b[None], arrays1, spec,
+                                            scales=rows_of.consts.state))
+
+    def one(t):
+        return _np(t[0])
+
     Nip = spec.Nintrinsics_state_per_cam
     Npv = spec.Npoints_variable
     i_intr0 = spec.state_index_intrinsics0
@@ -72,12 +78,13 @@ def _sparse_jacobian(b, arrays, spec: ProblemSpec):
                         rows_of.HW, axis=0)                 # per corner
         rows = np.arange(len(idx) * 2).reshape(-1, 2, 1)
         if _splined_fast_path_ok(spec):
-            _, J, Jw, wincols, _ = rows_of.splined_board(pk, arrays)
+            _, J, Jw, wincols, _ = rows_of.splined_board(
+                {k: v[0] for k, v in pk1.items()}, arrays)
             J = {k: _np(v) for k, v in J.items()}
             emit(rows, i_intr0 + _np(wincols)[:, None, :], _np(Jw))
         else:
-            _, J = rows_of.board(pk, arrays)
-            J = {k: _np(v) for k, v in J.items()}          # (N, 2, n)
+            _, J = rows_of.board(pk1, arrays1)
+            J = {k: one(v) for k, v in J.items()}          # (N, 2, n)
             if Nip:
                 emit_blocks(rows, i_intr0, Nip, idx[:, 1], J["intr"])
         if s.do_optimize_extrinsics:
@@ -92,8 +99,8 @@ def _sparse_jacobian(b, arrays, spec: ProblemSpec):
     # ---------------- point observations ----------------
     if spec.Nobservations_point:
         idx = _np(arrays["indices_point"])
-        _, J = rows_of.point(pk, arrays)
-        J = {k: _np(v) for k, v in J.items()}
+        _, J = rows_of.point(pk1, arrays1)
+        J = {k: one(v) for k, v in J.items()}
         rows = spec.measurement_index_points0 + \
             np.arange(len(idx) * 2).reshape(-1, 2, 1)
         if Nip:
@@ -107,19 +114,19 @@ def _sparse_jacobian(b, arrays, spec: ProblemSpec):
     # ---------------- triangulated pairs ----------------
     Ntri = spec.num_measurements_points_triangulated
     if Ntri and s.do_optimize_extrinsics and spec.Ncameras_extrinsics:
-        _, J0, J1 = rows_of.tri(pk, arrays)
+        _, J0, J1 = rows_of.tri(pk1, arrays1)
         rows = spec.measurement_index_points_triangulated0 + \
             np.arange(Ntri).reshape(-1, 1, 1)
         for ie, Jk in ((rows_of.ie0, J0), (rows_of.ie1, J1)):
             ice = _np(ie) - 1
-            emit_blocks(rows, i_ext0, 6, ice, _np(Jk)[:, None, :], ice >= 0)
+            emit_blocks(rows, i_ext0, 6, ice, one(Jk)[:, None, :], ice >= 0)
 
     # ---------------- regularization: nonzero entries only -------------
     if spec.num_measurements_regularization:
         r0 = spec.measurement_index_regularization0
-        _, Jreg = rows_of.regularization(pk)
+        _, Jreg = rows_of.regularization(pk1)
         if Jreg is not None:
-            Jreg = _np(Jreg)                               # (Nci, nterms, Nip)
+            Jreg = one(Jreg)                               # (Nci, nterms, Nip)
             ndist = (spec.Ndistortions
                      if (s.do_apply_regularization
                          and s.do_optimize_intrinsics_distortions) else 0)
@@ -136,7 +143,7 @@ def _sparse_jacobian(b, arrays, spec: ProblemSpec):
         if (s.do_apply_regularization_unity_cam01
                 and s.do_optimize_extrinsics
                 and spec.Ncameras_extrinsics > 0):
-            Ju = _np(rows_of.unity_cam01(pk)[1])
+            Ju = one(rows_of.unity_cam01(pk1)[1])
             nz = np.nonzero(Ju)[0]
             emit(np.full(len(nz), spec.Nmeasurements - 1), i_ext0 + nz,
                  Ju[nz])

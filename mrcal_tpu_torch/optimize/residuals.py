@@ -303,11 +303,15 @@ def residuals_full(params, arrays, spec: ProblemSpec):
 def split_packed_state(b, arrays, spec: ProblemSpec, scales=None):
     """Unpack a packed state vector b into the full parameter dict,
     filling non-optimized parts from `arrays`.  `scales`: spec.scales() as
-    a tensor like b, to spare a host-to-device copy per call."""
+    a tensor like b, to spare a host-to-device copy per call.
+
+    b may lead with a problem axis, (P, Nstate), and then so does every
+    float array of `arrays`, and every parameter returned."""
     if scales is None:
         scales = torch.as_tensor(spec.scales(), dtype=b.dtype,
                                  device=b.device)
     bu = b * scales
+    lead = tuple(b.shape[:-1])
     s = spec.selections
     params = dict(params_from_arrays(arrays))
 
@@ -315,33 +319,34 @@ def split_packed_state(b, arrays, spec: ProblemSpec, scales=None):
     n = spec.num_states_intrinsics
     if n:
         per = spec.Nintrinsics_state_per_cam
-        blk = bu[i:i + n].reshape(spec.Ncameras_intrinsics, per)
+        blk = bu[..., i:i + n].reshape(lead + (spec.Ncameras_intrinsics,
+                                              per))
         intr = params["intrinsics"]
         j = 0
         if spec.Ncore_state:
-            intr = torch.cat([blk[:, :4], intr[:, 4:]], dim=1)
+            intr = torch.cat([blk[..., :4], intr[..., 4:]], dim=-1)
             j = 4
         if s.do_optimize_intrinsics_distortions:
-            intr = torch.cat([intr[:, :spec.Ncore], blk[:, j:]], dim=1)
+            intr = torch.cat([intr[..., :spec.Ncore], blk[..., j:]], dim=-1)
         params["intrinsics"] = intr
         i += n
     n = spec.num_states_extrinsics
     if n:
-        params["extrinsics"] = bu[i:i + n].reshape(-1, 6)
+        params["extrinsics"] = bu[..., i:i + n].reshape(lead + (-1, 6))
         i += n
     n = spec.num_states_frames
     if n:
-        params["frames"] = bu[i:i + n].reshape(-1, 6)
+        params["frames"] = bu[..., i:i + n].reshape(lead + (-1, 6))
         i += n
     n = spec.num_states_points
     if n:
-        pts = bu[i:i + n].reshape(-1, 3)
+        pts = bu[..., i:i + n].reshape(lead + (-1, 3))
         params["points"] = torch.cat(
-            [pts, params["points"][spec.Npoints_variable:]], dim=0) \
-            if spec.Npoints_fixed else pts
+            [pts, params["points"][..., spec.Npoints_variable:, :]],
+            dim=-2) if spec.Npoints_fixed else pts
         i += n
     if spec.num_states_calobject_warp:
-        params["calobject_warp"] = bu[i:i + 2]
+        params["calobject_warp"] = bu[..., i:i + 2]
         i += 2
     if i != spec.Nstate:
         raise ValueError(f"packed state has {i} entries, expected "
@@ -350,26 +355,29 @@ def split_packed_state(b, arrays, spec: ProblemSpec, scales=None):
 
 
 def pack_params(params, spec: ProblemSpec):
-    """Extract the packed state vector from a parameter dict."""
+    """Extract the packed state vector from a parameter dict.  Parameters
+    that lead with a problem axis P give b of shape (P, Nstate)."""
     s = spec.selections
     intr = params["intrinsics"]
+    lead = tuple(intr.shape[:-2])
     parts = []
     if spec.num_states_intrinsics:
         cols = []
         if spec.Ncore_state:
-            cols.append(intr[:, :4])
+            cols.append(intr[..., :4])
         if s.do_optimize_intrinsics_distortions:
-            cols.append(intr[:, spec.Ncore:])
-        parts.append(torch.cat(cols, dim=1).reshape(-1))
+            cols.append(intr[..., spec.Ncore:])
+        parts.append(torch.cat(cols, dim=-1).reshape(lead + (-1,)))
     if spec.num_states_extrinsics:
-        parts.append(params["extrinsics"].reshape(-1))
+        parts.append(params["extrinsics"].reshape(lead + (-1,)))
     if spec.num_states_frames:
-        parts.append(params["frames"].reshape(-1))
+        parts.append(params["frames"].reshape(lead + (-1,)))
     if spec.num_states_points:
-        parts.append(params["points"][:spec.Npoints_variable].reshape(-1))
+        parts.append(params["points"][..., :spec.Npoints_variable, :]
+                     .reshape(lead + (-1,)))
     if spec.num_states_calobject_warp:
         parts.append(params["calobject_warp"])
-    b = torch.cat(parts) if parts else intr.new_zeros((0,))
+    b = torch.cat(parts, dim=-1) if parts else intr.new_zeros(lead + (0,))
     return b / torch.as_tensor(spec.scales(), dtype=b.dtype, device=b.device)
 
 

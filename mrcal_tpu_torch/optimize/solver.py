@@ -22,6 +22,12 @@ splined models:
   - the outlier-rejection loop (boards and triangulated pairs), the
     precision modes, the write-back and the check_gradient mode of
     ``optimize()``
+  - batched solves (``optimize_batch``, ``lm_solve_batch``,
+    ``pad_problems_to_common_structure``): the normal equations and the
+    Schur step take a leading problem axis, so P problems of one
+    structure iterate in lockstep with one kernel launch per block type
+    for all of them; ``optimize()`` runs through the same code as a batch
+    of one
 """
 
 import time
@@ -292,12 +298,31 @@ def _rows_and_vjp(fn, blocks, *args):
                         for k, gk in zip(names, g)}, aux
 
 
+def _batch_of_one(arrays):
+    """A problem's arrays as a batch of one: a leading problem axis of
+    length 1 on every float array (the index arrays are shared)."""
+    return {k: (v[None] if v.is_floating_point() else v)
+            for k, v in arrays.items()}
+
+
+def _one(pk):
+    """The packed blocks of one problem as a batch of one."""
+    return {k: v[None] for k, v in pk.items()}
+
+
 class _ObservationRows:
     """The residual rows of each kind of observation and their Jacobians
-    over the observation's own packed blocks, for one problem, on the
-    device and in the dtype of `arrays`: board rows per corner, point rows
-    per observation, triangulated rows per pair.  The normal equations and
-    the sparse Jacobian both take their rows from here."""
+    over the observation's own packed blocks, on the device and in the
+    dtype of `arrays`: board rows per corner, point rows per observation,
+    triangulated rows per pair.  The normal equations and the sparse
+    Jacobian both take their rows from here.
+
+    Every method but splined_board takes a batch of P problems of one
+    structure: packed blocks and float arrays lead with P, the index
+    arrays are shared, and the rows of all P problems go through one
+    autograd pass (each row depends on its own copy of its blocks only,
+    so the per-row Jacobians stay exact).  splined_board takes one
+    problem."""
 
     def __init__(self, spec: ProblemSpec, arrays):
         dt = arrays["intrinsics"].dtype
@@ -326,41 +351,50 @@ class _ObservationRows:
         """The packed blocks of a parameter dict in real units: the
         intrinsics state (Nci, Nip), the full intrinsics (real units), the
         extrinsics with an identity row first for the camera at the
-        reference (Nce + 1, 6), the frames, points and warp."""
+        reference (Nce + 1, 6), the frames, points and warp; each with
+        the parameters' leading problem axis, if they have one."""
         s, c = self.spec.selections, self.consts
         intr_full = params["intrinsics"]
         cols = []
         if self.spec.Ncore_state:
-            cols.append(intr_full[:, :4])
+            cols.append(intr_full[..., :4])
         if s.do_optimize_intrinsics_distortions:
-            cols.append(intr_full[:, self.spec.Ncore:])
+            cols.append(intr_full[..., self.spec.Ncore:])
         ext = params["extrinsics"] / c.ext
         return dict(
             intr=(torch.cat(cols, dim=-1) / c.intr if cols
-                  else intr_full[:, :0]),
+                  else intr_full[..., :0]),
             intr_full=intr_full,
             ext=ext,
-            ext_pad=torch.cat([ext.new_zeros((1, 6)), ext], dim=0),
+            ext_pad=torch.cat([ext.new_zeros(ext.shape[:-2] + (1, 6)), ext],
+                              dim=-2),
             frame=params["frames"] / c.frame,
             point=params["points"] / c.point,
             warp=params["calobject_warp"] / c.warp,
             warp_real=params["calobject_warp"])
 
     def board(self, pk, arrays):
-        """-> r (Nobs*H*W, 2) and J {intr, ext, frame, warp: (Nobs*H*W, 2,
-        n)}.  Every corner gets its own copy of its observation's blocks."""
+        """-> r (P, Nobs*H*W, 2) and J {intr, ext, frame, warp: (P,
+        Nobs*H*W, 2, n)}.  Every corner gets its own copy of its
+        observation's blocks."""
         idx = arrays["indices_board"]
         ifr, ici, ice = idx[:, 0], idx[:, 1], idx[:, 2]
-        blocks = dict(intr=pk["intr"][ici], ext=pk["ext_pad"][ice + 1],
-                      frame=pk["frame"][ifr],
-                      warp=pk["warp"].expand(len(idx), 2))
-        return _rows_and_jacobian(
-            self.board_fn,
-            {k: v.repeat_interleave(self.HW, dim=0)
-             for k, v in blocks.items()},
-            self.cxy, arrays["observations_board"].reshape(-1, 3),
-            pk["intr_full"][ici].repeat_interleave(self.HW, dim=0),
-            pk["warp_real"])
+        P, Nobs = pk["intr_full"].shape[0], len(idx)
+
+        def per_corner(t):                       # (P, Nobs, n) -> (P*N, n)
+            return t.repeat_interleave(self.HW, dim=1).reshape(
+                -1, t.shape[-1])
+
+        blocks = dict(intr=pk["intr"][:, ici], ext=pk["ext_pad"][:, ice + 1],
+                      frame=pk["frame"][:, ifr],
+                      warp=pk["warp"][:, None].expand(P, Nobs, 2))
+        r, J = _rows_and_jacobian(
+            self.board_fn, {k: per_corner(v) for k, v in blocks.items()},
+            self.cxy.repeat(P, 1), arrays["observations_board"].reshape(-1, 3),
+            per_corner(pk["intr_full"][:, ici]),
+            per_corner(pk["warp_real"][:, None].expand(P, Nobs, 2)))
+        return r.reshape(P, -1, 2), {k: v.reshape(P, -1, 2, v.shape[-1])
+                                     for k, v in J.items()}
 
     def splined_board(self, pk, arrays, jacobian=True):
         """The board rows of a splined model with the core locked, per
@@ -409,36 +443,47 @@ class _ObservationRows:
         return r, J, Jw, wincols, (ix0, iy0, wx, wy)
 
     def point(self, pk, arrays):
-        """-> r (Nobs, 2) and J {intr, ext, point: (Nobs, 2, n)}; fixed
-        points pass their real position / scale."""
+        """-> r (P, Nobs, 2) and J {intr, ext, point: (P, Nobs, 2, n)};
+        fixed points pass their real position / scale."""
         idx = arrays["indices_point"]
         ipt, ici, ice = idx[:, 0], idx[:, 1], idx[:, 2]
-        return _rows_and_jacobian(
-            self.point_fn, dict(intr=pk["intr"][ici],
-                                ext=pk["ext_pad"][ice + 1],
-                                point=pk["point"][ipt]),
-            arrays["observations_point"], pk["intr_full"][ici])
+        P = pk["intr_full"].shape[0]
+
+        def flat(t):
+            return t.reshape(-1, t.shape[-1])
+
+        r, J = _rows_and_jacobian(
+            self.point_fn, dict(intr=flat(pk["intr"][:, ici]),
+                                ext=flat(pk["ext_pad"][:, ice + 1]),
+                                point=flat(pk["point"][:, ipt])),
+            flat(arrays["observations_point"]),
+            flat(pk["intr_full"][:, ici]))
+        return r.reshape(P, -1, 2), {k: v.reshape(P, -1, 2, v.shape[-1])
+                                     for k, v in J.items()}
 
     def tri(self, pk, arrays):
-        """-> x (Npairs,) and the Jacobians over the pair's two cameras'
-        packed rt blocks, J0 and J1 (Npairs, 6); 0 for a pair with an
+        """-> x (P, Npairs) and the Jacobians over the pair's two cameras'
+        packed rt blocks, J0 and J1 (P, Npairs, 6); 0 for a pair with an
         outlier observation."""
         px = arrays["px_triangulated"]
-        w = arrays["observations_point_triangulated"][:, 2]
+        w = arrays["observations_point_triangulated"][..., 2]
+        P = px.shape[0]
         r, J = _rows_and_jacobian(
-            self.tri_fn, dict(rt0=pk["ext_pad"][self.ie0],
-                              rt1=pk["ext_pad"][self.ie1]),
-            px[self.i0], px[self.i1])
-        valid = (w[self.i0] > 0) & (w[self.i1] > 0)
+            self.tri_fn, dict(rt0=pk["ext_pad"][:, self.ie0].reshape(-1, 6),
+                              rt1=pk["ext_pad"][:, self.ie1].reshape(-1, 6)),
+            px[:, self.i0].reshape(-1, 3), px[:, self.i1].reshape(-1, 3))
+        valid = (w[:, self.i0] > 0) & (w[:, self.i1] > 0)
         # where, not multiply: an outlier pair's err/J may be NaN
-        return (torch.where(valid, r[:, 0], 0.0),
-                torch.where(valid[:, None], J["rt0"][:, 0], 0.0),
-                torch.where(valid[:, None], J["rt1"][:, 0], 0.0))
+        return (torch.where(valid, r.reshape(P, -1), 0.0),
+                torch.where(valid[..., None], J["rt0"].reshape(P, -1, 6),
+                            0.0),
+                torch.where(valid[..., None], J["rt1"].reshape(P, -1, 6),
+                            0.0))
 
     def regularization(self, pk):
-        """The per-camera regularization rows (Nci, nterms), distortions
+        """The per-camera regularization rows (P, Nci, nterms), distortions
         then center pixel, and their Jacobians over the camera's
-        intrinsics state (Nci, nterms, Nip), None without one."""
+        intrinsics state (P, Nci, nterms, Nip), None without one."""
         spec, consts = self.spec, self.consts
 
         def reg_fn_cam(intr_state_1, intr_fixed_1, target_1):
@@ -446,20 +491,26 @@ class _ObservationRows:
                                       consts.intr)
             return _reg_per_camera(intr1, spec, consts, target_1)
 
-        args = (pk["intr"], pk["intr_full"], consts.reg_targets)
+        P, Nci = pk["intr_full"].shape[:2]
+        args = (pk["intr"].reshape(P * Nci, -1),
+                pk["intr_full"].reshape(P * Nci, -1),
+                consts.reg_targets.repeat(P, 1))
         rreg = torch.func.vmap(reg_fn_cam)(*args)
         Jreg = (torch.func.vmap(torch.func.jacrev(reg_fn_cam))(*args)
-                if pk["intr"].shape[1] and rreg.shape[1] else None)
-        return rreg, Jreg
+                if pk["intr"].shape[-1] and rreg.shape[-1] else None)
+        return (rreg.reshape(P, Nci, -1),
+                None if Jreg is None else Jreg.reshape(
+                    (P, Nci) + Jreg.shape[1:]))
 
     def unity_cam01(self, pk):
-        """The unity_cam01 row (|t| of extrinsics 0 held at 1) and its
-        Jacobian over that camera's packed rt (6,)."""
+        """The unity_cam01 row (|t| of extrinsics 0 held at 1) (P,) and
+        its Jacobian over that camera's packed rt (P, 6)."""
         c = 0.1 / 0.01
-        t0 = pk["ext"][0, 3:] * _layout.SCALE_TRANSLATION_CAMERA
-        ru = c * (torch.sum(t0 * t0) - 1.0)
-        Ju = torch.cat([t0.new_zeros(3),
-                        c * 2.0 * t0 * _layout.SCALE_TRANSLATION_CAMERA])
+        t0 = pk["ext"][:, 0, 3:] * _layout.SCALE_TRANSLATION_CAMERA
+        ru = c * (torch.sum(t0 * t0, dim=-1) - 1.0)
+        Ju = torch.cat([torch.zeros_like(t0),
+                        c * 2.0 * t0 * _layout.SCALE_TRANSLATION_CAMERA],
+                       dim=-1)
         return ru, Ju
 
 
@@ -484,12 +535,14 @@ def _pair_ids(oids, nobs, device):
 
 
 def _take(t, ids):
-    return t if ids is None else t[ids]
+    """Observations `ids` of every problem of t (P, Nobs, ...)."""
+    return t if ids is None else t[:, ids]
 
 
 def _seg(x, ids, n):
-    """segment_sum: sum the rows of x into n segments by ids."""
-    return x.new_zeros((n,) + x.shape[1:]).index_add_(0, ids, x)
+    """segment_sum along the observation axis of x (P, Nobs, ...): sum
+    each problem's rows into n segments by ids."""
+    return x.new_zeros((x.shape[0], n) + x.shape[2:]).index_add_(1, ids, x)
 
 
 def _reg_per_camera(intr_row, spec: ProblemSpec, consts, target):
@@ -527,9 +580,14 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx, *,
     per-camera-pair grouping).  The constants live on the device and in the
     dtype of `arrays`.
 
+    b (Nstate,) is one problem.  b (P, Nstate) is a batch of P problems of
+    one structure: every float array of `arrays` then leads with P (the
+    index arrays are shared), and so does every leaf of the result.  One
+    problem is evaluated as a batch of one.
+
     Splined models with the core locked take the spline-window assembly
-    (build_normal_equations_splined), whose f also has a gradient-only
-    mode, and which alone takes h32."""
+    (build_normal_equations_splined) for one problem only; its f also has
+    a gradient-only mode, and it alone takes h32."""
     require_ported(spec.lensmodel)
     if _splined_fast_path_ok(spec):
         return build_normal_equations_splined(spec, arrays, static_idx,
@@ -537,6 +595,20 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx, *,
     if h32:
         raise ValueError("h32: only the splined window assembly assembles "
                          "H in float32")
+    f = _build_normal_equations_batch(spec, arrays, static_idx)
+
+    def one_or_batch(b, arrays):
+        if b.dim() == 2:
+            return f(b, arrays)
+        return {k: v[0] for k, v in f(b[None], _batch_of_one(arrays)).items()}
+
+    return one_or_batch
+
+
+def _build_normal_equations_batch(spec: ProblemSpec, arrays, static_idx):
+    """build_normal_equations for a batch: f(b (P, Nstate), arrays) -> the
+    dict with a leading P on every leaf.  The problems' rows go through
+    one autograd pass; every sum is per problem, with P in the tensor."""
     s = spec.selections
     cl = _CLayout(spec)
     Nf = spec.Nframes
@@ -572,30 +644,40 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx, *,
         tri_ext = bool(s.do_optimize_extrinsics and spec.Ncameras_extrinsics)
 
     def f(b, arrays):
+        P = b.shape[0]
         params = split_packed_state(b, arrays, spec, scales=consts.state)
         pk = rows_of.packed(params)
 
         Nc = cl.Nc
         zeros = b.new_zeros
-        g_c = zeros(Nc)
-        Hcc = zeros((Nc, Nc))
-        g_f = zeros((max(Nf, 1), 6))
-        Hff = zeros((max(Nf, 1), 6, 6))
-        Cf = zeros((max(Nf, 1), 6, Nc))
-        g_p = zeros((max(Npv, 1), 3))
-        Hpp = zeros((max(Npv, 1), 3, 3))
-        Cp = zeros((max(Npv, 1), 3, Nc))
-        E = zeros(())
-        x_board = zeros((0,))
-        x_point = zeros((0,))
+        g_c = zeros((P, Nc))
+        Hcc = zeros((P, Nc, Nc))
+        g_f = zeros((P, max(Nf, 1), 6))
+        Hff = zeros((P, max(Nf, 1), 6, 6))
+        Cf = zeros((P, max(Nf, 1), 6, Nc))
+        g_p = zeros((P, max(Npv, 1), 3))
+        Hpp = zeros((P, max(Npv, 1), 3, 3))
+        Cp = zeros((P, max(Npv, 1), 3, Nc))
+        E = zeros((P,))
+        x_board = zeros((P, 0))
+        x_point = zeros((P, 0))
         w0, Nip = cl.w0, cl.Nip
+
+        def outer(A, B):
+            """sum over the rows m of each observation: (P, O, m, i) x
+            (P, O, m, j) -> (P, O, i, j)"""
+            return torch.einsum("pomi,pomj->poij", A, B)
+
+        def outer_all(A, B):
+            """... and over the observations too -> (P, i, j)"""
+            return torch.einsum("pomi,pomj->pij", A, B)
 
         # ---------------- board observations ----------------
         if Nob:
             ifr = idxb[:, 0]
             r2, J2 = rows_of.board(pk, arrays)
-            r = r2.reshape(Nob, M)
-            J = {k: v.reshape(Nob, M, v.shape[-1]) for k, v in J2.items()}
+            r = r2.reshape(P, Nob, M)
+            J = {k: v.reshape(P, Nob, M, v.shape[-1]) for k, v in J2.items()}
             Ji = J["intr"] if Nip > 0 else torch.zeros_like(J["intr"])
             Je = J["ext"] if s.do_optimize_extrinsics \
                 else torch.zeros_like(J["ext"])
@@ -606,59 +688,53 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx, *,
             # camera at reference: no extrinsics gradient
             Je = Je * ext_valid_b
 
-            x_board = r.reshape(-1)
-            E = E + torch.sum(r * r)
+            x_board = r.reshape(P, -1)
+            E = E + torch.sum(r * r, dim=(1, 2))
 
-            gi = torch.einsum("omi,om->oi", Ji, r)
-            ge = torch.einsum("omi,om->oi", Je, r)
-            gf = torch.einsum("omi,om->oi", Jf, r)
-            gw = torch.einsum("omi,om->i", Jw, r)
-            g_c[w0:w0 + 2] += gw
+            gi = torch.einsum("pomi,pom->poi", Ji, r)
+            ge = torch.einsum("pomi,pom->poi", Je, r)
+            gf = torch.einsum("pomi,pom->poi", Jf, r)
+            gw = torch.einsum("pomi,pom->pi", Jw, r)
+            g_c[:, w0:w0 + 2] += gw
             if Nf:
-                g_f[:Nf] += _seg(gf, ifr, Nf)
-                Hff[:Nf] += _seg(torch.einsum("omi,omj->oij", Jf, Jf),
-                                 ifr, Nf)
+                g_f[:, :Nf] += _seg(gf, ifr, Nf)
+                Hff[:, :Nf] += _seg(outer(Jf, Jf), ifr, Nf)
             # warp self + warp-frame cross
-            Hcc[w0:w0 + 2, w0:w0 + 2] += torch.einsum("omi,omj->ij", Jw, Jw)
+            Hcc[:, w0:w0 + 2, w0:w0 + 2] += outer_all(Jw, Jw)
             if Nf:
-                Cf[:, :, w0:w0 + 2] += _seg(
-                    torch.einsum("omi,omj->oij", Jf, Jw), ifr, Nf)
+                Cf[..., w0:w0 + 2] += _seg(outer(Jf, Jw), ifr, Nf)
 
             # per distinct (ici,ice) pair: static column placement
             for (ci, ce), oid in pairs_b:
                 Ji_p, Je_p, Jf_p, Jw_p = (_take(Ji, oid), _take(Je, oid),
                                           _take(Jf, oid), _take(Jw, oid))
-                ifr_p = _take(ifr, oid)
+                ifr_p = ifr if oid is None else ifr[oid]
                 i0 = cl.coli(ci)
-                g_c[i0:i0 + Nip] += torch.sum(_take(gi, oid), dim=0)
-                Hcc[i0:i0 + Nip, i0:i0 + Nip] += \
-                    torch.einsum("omi,omj->ij", Ji_p, Ji_p)
+                g_c[:, i0:i0 + Nip] += torch.sum(_take(gi, oid), dim=1)
+                Hcc[:, i0:i0 + Nip, i0:i0 + Nip] += outer_all(Ji_p, Ji_p)
                 # intr-warp cross
-                Hiw = torch.einsum("omi,omj->ij", Ji_p, Jw_p)
-                Hcc[i0:i0 + Nip, w0:w0 + 2] += Hiw
-                Hcc[w0:w0 + 2, i0:i0 + Nip] += Hiw.T
+                Hiw = outer_all(Ji_p, Jw_p)
+                Hcc[:, i0:i0 + Nip, w0:w0 + 2] += Hiw
+                Hcc[:, w0:w0 + 2, i0:i0 + Nip] += Hiw.transpose(1, 2)
                 if Nf:
-                    Cf[:, :, i0:i0 + Nip] += _seg(
-                        torch.einsum("omi,omj->oij", Jf_p, Ji_p), ifr_p, Nf)
+                    Cf[..., i0:i0 + Nip] += _seg(outer(Jf_p, Ji_p), ifr_p, Nf)
                 if ce >= 0:
                     e0 = cl.cole(ce)
-                    g_c[e0:e0 + 6] += torch.sum(_take(ge, oid), dim=0)
-                    Hcc[e0:e0 + 6, e0:e0 + 6] += \
-                        torch.einsum("omi,omj->ij", Je_p, Je_p)
-                    Hie = torch.einsum("omi,omj->ij", Ji_p, Je_p)
-                    Hcc[i0:i0 + Nip, e0:e0 + 6] += Hie
-                    Hcc[e0:e0 + 6, i0:i0 + Nip] += Hie.T
-                    Hew = torch.einsum("omi,omj->ij", Je_p, Jw_p)
-                    Hcc[e0:e0 + 6, w0:w0 + 2] += Hew
-                    Hcc[w0:w0 + 2, e0:e0 + 6] += Hew.T
+                    g_c[:, e0:e0 + 6] += torch.sum(_take(ge, oid), dim=1)
+                    Hcc[:, e0:e0 + 6, e0:e0 + 6] += outer_all(Je_p, Je_p)
+                    Hie = outer_all(Ji_p, Je_p)
+                    Hcc[:, i0:i0 + Nip, e0:e0 + 6] += Hie
+                    Hcc[:, e0:e0 + 6, i0:i0 + Nip] += Hie.transpose(1, 2)
+                    Hew = outer_all(Je_p, Jw_p)
+                    Hcc[:, e0:e0 + 6, w0:w0 + 2] += Hew
+                    Hcc[:, w0:w0 + 2, e0:e0 + 6] += Hew.transpose(1, 2)
                     if Nf:
-                        Cf[:, :, e0:e0 + 6] += _seg(
-                            torch.einsum("omi,omj->oij", Jf_p, Je_p),
-                            ifr_p, Nf)
+                        Cf[..., e0:e0 + 6] += _seg(outer(Jf_p, Je_p), ifr_p,
+                                                   Nf)
 
         # ---------------- point observations ----------------
         if Nop:
-            r, J = rows_of.point(pk, arrays)                   # (Nop,2)
+            r, J = rows_of.point(pk, arrays)                 # (P,Nop,2)
             Ji = J["intr"] if Nip > 0 else torch.zeros_like(J["intr"])
             Je = J["ext"] if s.do_optimize_extrinsics \
                 else torch.zeros_like(J["ext"])
@@ -667,74 +743,78 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx, *,
             Je = Je * ext_valid_p
             Jp = Jp * point_var                  # fixed points: no gradient
 
-            x_point = r.reshape(-1)
-            E = E + torch.sum(r * r)
+            x_point = r.reshape(P, -1)
+            E = E + torch.sum(r * r, dim=(1, 2))
 
-            gi = torch.einsum("omi,om->oi", Ji, r)
-            ge = torch.einsum("omi,om->oi", Je, r)
-            gp = torch.einsum("omi,om->oi", Jp, r)
+            gi = torch.einsum("pomi,pom->poi", Ji, r)
+            ge = torch.einsum("pomi,pom->poi", Je, r)
+            gp = torch.einsum("pomi,pom->poi", Jp, r)
             if Npv:
-                g_p[:Npv] += _seg(gp, ipt_c, Npv)
-                Hpp[:Npv] += _seg(torch.einsum("omi,omj->oij", Jp, Jp),
-                                  ipt_c, Npv)
+                g_p[:, :Npv] += _seg(gp, ipt_c, Npv)
+                Hpp[:, :Npv] += _seg(outer(Jp, Jp), ipt_c, Npv)
             for (ci, ce), oid in pairs_p:
                 Ji_p, Je_p, Jp_p = (_take(Ji, oid), _take(Je, oid),
                                     _take(Jp, oid))
-                ipt_p = _take(ipt_c, oid)
+                ipt_p = ipt_c if oid is None else ipt_c[oid]
                 i0 = cl.coli(ci)
-                g_c[i0:i0 + Nip] += torch.sum(_take(gi, oid), dim=0)
-                Hcc[i0:i0 + Nip, i0:i0 + Nip] += \
-                    torch.einsum("omi,omj->ij", Ji_p, Ji_p)
+                g_c[:, i0:i0 + Nip] += torch.sum(_take(gi, oid), dim=1)
+                Hcc[:, i0:i0 + Nip, i0:i0 + Nip] += outer_all(Ji_p, Ji_p)
                 if Npv:
-                    Cp[:, :, i0:i0 + Nip] += _seg(
-                        torch.einsum("omi,omj->oij", Jp_p, Ji_p), ipt_p, Npv)
+                    Cp[..., i0:i0 + Nip] += _seg(outer(Jp_p, Ji_p), ipt_p,
+                                                 Npv)
                 if ce >= 0:
                     e0 = cl.cole(ce)
-                    g_c[e0:e0 + 6] += torch.sum(_take(ge, oid), dim=0)
-                    Hcc[e0:e0 + 6, e0:e0 + 6] += \
-                        torch.einsum("omi,omj->ij", Je_p, Je_p)
-                    Hie = torch.einsum("omi,omj->ij", Ji_p, Je_p)
-                    Hcc[i0:i0 + Nip, e0:e0 + 6] += Hie
-                    Hcc[e0:e0 + 6, i0:i0 + Nip] += Hie.T
+                    g_c[:, e0:e0 + 6] += torch.sum(_take(ge, oid), dim=1)
+                    Hcc[:, e0:e0 + 6, e0:e0 + 6] += outer_all(Je_p, Je_p)
+                    Hie = outer_all(Ji_p, Je_p)
+                    Hcc[:, i0:i0 + Nip, e0:e0 + 6] += Hie
+                    Hcc[:, e0:e0 + 6, i0:i0 + Nip] += Hie.transpose(1, 2)
                     if Npv:
-                        Cp[:, :, e0:e0 + 6] += _seg(
-                            torch.einsum("omi,omj->oij", Jp_p, Je_p),
-                            ipt_p, Npv)
+                        Cp[..., e0:e0 + 6] += _seg(outer(Jp_p, Je_p), ipt_p,
+                                                   Npv)
 
         # ---------------- triangulated-point pairs ----------------
-        x_tri = zeros((0,))
+        x_tri = zeros((P, 0))
         if Ntri:
             x_tri, J0, J1 = rows_of.tri(pk, arrays)
-            E = E + torch.sum(x_tri * x_tri)
+            E = E + torch.sum(x_tri * x_tri, dim=1)
             if tri_ext:
-                # the pairs' dense rows over the extrinsics, (Ntri, 6*Nce)
-                Jrow = zeros((Ntri, spec.Ncameras_extrinsics + 1, 6))
-                Jrow[tri_rows, rows_of.ie0] = J0
-                Jrow.index_put_((tri_rows, rows_of.ie1), J1, accumulate=True)
-                Jrow = Jrow.reshape(Ntri, -1)[:, 6:]       # drop ref cam
-                Hcc[cl.e0:cl.w0, cl.e0:cl.w0] += Jrow.T @ Jrow
-                g_c[cl.e0:cl.w0] += Jrow.T @ x_tri
+                # the pairs' dense rows over the extrinsics, (P, Ntri,
+                # 6*Nce); within one assignment the (pair, camera) index
+                # pairs are distinct, so += adds J1 onto J0 where a pair's
+                # two observations share a camera
+                Jrow = zeros((P, Ntri, spec.Ncameras_extrinsics + 1, 6))
+                Jrow[:, tri_rows, rows_of.ie0] = J0
+                Jrow[:, tri_rows, rows_of.ie1] += J1
+                Jrow = Jrow.reshape(P, Ntri, -1)[..., 6:]   # drop ref cam
+                Hcc[:, cl.e0:cl.w0, cl.e0:cl.w0] += \
+                    Jrow.transpose(1, 2) @ Jrow
+                g_c[:, cl.e0:cl.w0] += torch.einsum("ptk,pt->pk", Jrow,
+                                                    x_tri)
 
         # ---------------- regularization ----------------
-        x_reg = zeros((0,))
+        x_reg = zeros((P, 0))
         if spec.num_measurements_regularization:
             # per-camera reg rows depend on that camera's intrinsics state;
             # plus optionally one unity_cam01 row on extrinsics 0
             rreg, Jreg = rows_of.regularization(pk)
-            E = E + torch.sum(rreg * rreg)
+            E = E + torch.sum(rreg * rreg, dim=(1, 2))
             if Jreg is not None:
                 for ci in range(spec.Ncameras_intrinsics):
                     i0 = cl.coli(ci)
-                    g_c[i0:i0 + Nip] += Jreg[ci].T @ rreg[ci]
-                    Hcc[i0:i0 + Nip, i0:i0 + Nip] += Jreg[ci].T @ Jreg[ci]
+                    g_c[:, i0:i0 + Nip] += torch.einsum(
+                        "pki,pk->pi", Jreg[:, ci], rreg[:, ci])
+                    Hcc[:, i0:i0 + Nip, i0:i0 + Nip] += torch.einsum(
+                        "pki,pkj->pij", Jreg[:, ci], Jreg[:, ci])
             # the reference emits ALL distortion terms for all cameras,
             # then ALL centerpixel terms
             ndist_terms = (spec.Ndistortions
                            if (s.do_apply_regularization
                                and s.do_optimize_intrinsics_distortions)
                            else 0)
-            x_reg = torch.cat([rreg[:, :ndist_terms].reshape(-1),
-                               rreg[:, ndist_terms:].reshape(-1)])
+            x_reg = torch.cat([rreg[..., :ndist_terms].reshape(P, -1),
+                               rreg[..., ndist_terms:].reshape(P, -1)],
+                              dim=1)
 
             if (s.do_apply_regularization_unity_cam01
                     and s.do_optimize_extrinsics
@@ -742,9 +822,9 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx, *,
                 ru, Ju = rows_of.unity_cam01(pk)
                 E = E + ru * ru
                 e0 = cl.cole(0)
-                g_c[e0:e0 + 6] += Ju * ru
-                Hcc[e0:e0 + 6, e0:e0 + 6] += torch.outer(Ju, Ju)
-                x_reg = torch.cat([x_reg, ru[None]])
+                g_c[:, e0:e0 + 6] += Ju * ru[:, None]
+                Hcc[:, e0:e0 + 6, e0:e0 + 6] += Ju[:, :, None] * Ju[:, None]
+                x_reg = torch.cat([x_reg, ru[:, None]], dim=1)
 
         return dict(E=E, g_c=g_c, g_f=g_f, g_p=g_p, Hcc=Hcc, Hff=Hff,
                     Cf=Cf, Hpp=Hpp, Cp=Cp,
@@ -906,7 +986,8 @@ def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
                 pk["intr_full"][:, 4:].reshape(Nci, lm.Ny, lm.Nx, 2),
                 *consts.reg_knots)                       # (Nci, nterms)
             if not reg_cache:
-                Jreg = rows_of.regularization(pk)[1]     # (Nci, nterms, Nip)
+                # (Nci, nterms, Nip)
+                Jreg = rows_of.regularization(_one(pk))[1][0]
                 reg_cache.update(J=Jreg, JtJ=torch.einsum(
                     "cki,ckj->cij", Jreg, Jreg).to(hdt))
             E = E + torch.sum(rreg * rreg)
@@ -920,7 +1001,7 @@ def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
             x_reg = rreg.reshape(-1)
         if (s.do_apply_regularization_unity_cam01
                 and s.do_optimize_extrinsics and Nce > 0):
-            ru, Ju = rows_of.unity_cam01(pk)
+            ru, Ju = (t[0] for t in rows_of.unity_cam01(_one(pk)))
             E = E + ru * ru
             e0 = cl.cole(0)
             g_c[e0:e0 + 6] += Ju * ru
@@ -940,42 +1021,80 @@ def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
 # ----------------------------------------------------------------------------
 
 def _block_eliminate(A, C, g):
-    """Factor the batch of small SPD blocks A and solve it against the
-    coupling block C (B, n, Nc) and the gradient g (B, n), in one kernel
-    launch on a CUDA tensor.  Returns (L, A^-1 C, A^-1 g); L serves the
+    """Factor the batch of small SPD blocks A (..., n, n) and solve it
+    against the coupling block C (..., n, Nc) and the gradient g (..., n),
+    in one kernel launch on a CUDA tensor: every leading axis folds into
+    the kernel's block axis.  Returns (L, A^-1 C, A^-1 g); L serves the
     back-substitution."""
-    L, X = cholesky_factor_solve(A, torch.cat([C, g[..., None]], dim=-1))
-    return L, X[..., :-1], X[..., -1]
+    n = A.shape[-1]
+    rhs = torch.cat([C, g[..., None]], dim=-1)
+    L, X = cholesky_factor_solve(A.reshape(-1, n, n),
+                                 rhs.reshape(-1, n, rhs.shape[-1]))
+    X = X.reshape(rhs.shape)
+    return L.reshape(A.shape), X[..., :-1], X[..., -1]
+
+
+def _back_substitute(L, rhs):
+    """Solve the blocks factored by _block_eliminate, L (..., n, n),
+    against rhs (..., n), in one kernel launch on a CUDA tensor."""
+    n = L.shape[-1]
+    return cholesky_solve_factored(L.reshape(-1, n, n),
+                                   rhs.reshape(-1, n, 1)).reshape(rhs.shape)
+
+
+def _per_problem(t, like):
+    """t (P,) shaped to broadcast against like (P, ...)."""
+    return t.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
 def _damping_diag(A):
-    """Marquardt scaling diagonal for a (batched) SPD block: diag(A)
-    clamped below by a relative floor, so barely-observed states still get
-    positive damping."""
+    """Marquardt scaling diagonal for the SPD blocks A (P, ..., n, n) of
+    each of P problems: diag(A) clamped below by a relative floor, 1e-12
+    of the problem's largest diagonal entry of this block type, so
+    barely-observed states still get positive damping."""
     d = torch.diagonal(A, dim1=-2, dim2=-1)
-    floor = 1e-12 * torch.max(d) + 1e-30
-    return torch.maximum(d, floor)
+    floor = 1e-12 * torch.amax(d.reshape(d.shape[0], -1), dim=1) + 1e-30
+    return torch.maximum(d, _per_problem(floor, d))
 
 
 def _damped(A, lam, dd):
+    """A + lam diag(dd), lam (P,) per problem."""
     n = A.shape[-1]
-    return A + (lam * dd)[..., None] * torch.eye(n, dtype=A.dtype,
-                                                 device=A.device)
+    return A + (_per_problem(lam, dd) * dd)[..., None] * torch.eye(
+        n, dtype=A.dtype, device=A.device)
+
+
+# the normal-equation entries a step reads
+_STEP_KEYS = ("g_c", "g_f", "g_p", "Hcc", "Hff", "Cf", "Hpp", "Cp")
 
 
 def schur_step(ne, lam, spec: ProblemSpec):
     """Solve (JtJ + lam D) delta = -g exactly via block elimination of
     frame and point blocks, D = Marquardt diag(JtJ) scaling.  Returns
     (delta_c, delta_f, delta_p, pred) where pred is the model's predicted
-    decrease of E: pred = -g.d + lam d.D.d.  lam: a 0-d tensor or a
-    float.
+    decrease of E: pred = -g.d + lam d.D.d.
+
+    ne of one problem (g_c (Nc,)) takes lam a float or a 0-d tensor, and
+    is stepped as a batch of one.  ne of P problems (g_c (P, Nc), every
+    leaf leading with P) takes lam of shape (P,) or a scalar, and gives
+    each output with a leading P: the frame (and point) blocks of all P
+    problems go through one fused factor-and-solve launch and one
+    back-substitution launch, and the reduced camera systems through one
+    batched dense Cholesky, with its failure flag per problem.
 
     The H and C blocks may be in a lower dtype than the gradient (float32
     H under a float64 gradient): the factorizations and solves then run
     in H's dtype, and delta and pred come back in the gradient's."""
+    if ne["g_c"].dim() == 1:
+        out = schur_step({k: ne[k][None] for k in _STEP_KEYS},
+                         torch.as_tensor(lam, dtype=ne["g_c"].dtype,
+                                         device=ne["g_c"].device).reshape(1),
+                         spec)
+        return tuple(t[0] for t in out)
     dt = ne["g_c"].dtype
     hdt = ne["Hcc"].dtype
-    lam = torch.as_tensor(lam, dtype=dt, device=ne["g_c"].device)
+    P = ne["g_c"].shape[0]
+    lam = torch.as_tensor(lam, dtype=dt, device=ne["g_c"].device).expand(P)
     if hdt == torch.float32:
         # f32-assembled H: its diag carries ~eps32 relative noise, so
         # H_red + lam*diag(H) goes indefinite once lam < ~2e-7; saturate
@@ -989,83 +1108,69 @@ def schur_step(ne, lam, spec: ProblemSpec):
     g_red = ne["g_c"].to(hdt)
 
     if Nf:
-        dd_f = _damping_diag(ne["Hff"][:Nf])
-        Af = _damped(ne["Hff"][:Nf], lam_h, dd_f)
-        Cf = ne["Cf"][:Nf]                                 # (Nf,6,Nc)
-        gf = ne["g_f"][:Nf]
+        dd_f = _damping_diag(ne["Hff"][:, :Nf])
+        Af = _damped(ne["Hff"][:, :Nf], lam_h, dd_f)
+        Cf = ne["Cf"][:, :Nf]                              # (P,Nf,6,Nc)
+        gf = ne["g_f"][:, :Nf]
         gf_h = gf.to(hdt)
         L_f, AinvC, Ainvg = _block_eliminate(Af, Cf, gf_h)
-        H_red = H_red - torch.einsum("fic,fid->cd", Cf, AinvC)
-        g_red = g_red - torch.einsum("fic,fi->c", Cf, Ainvg)
+        H_red = H_red - torch.einsum("pfic,pfid->pcd", Cf, AinvC)
+        g_red = g_red - torch.einsum("pfic,pfi->pc", Cf, Ainvg)
     if Npv:
-        dd_p = _damping_diag(ne["Hpp"][:Npv])
-        Ap = _damped(ne["Hpp"][:Npv], lam_h, dd_p)
-        Cp = ne["Cp"][:Npv]
-        gp = ne["g_p"][:Npv]
+        dd_p = _damping_diag(ne["Hpp"][:, :Npv])
+        Ap = _damped(ne["Hpp"][:, :Npv], lam_h, dd_p)
+        Cp = ne["Cp"][:, :Npv]
+        gp = ne["g_p"][:, :Npv]
         gp_h = gp.to(hdt)
         L_p, AinvCp, Ainvgp = _block_eliminate(Ap, Cp, gp_h)
-        H_red = H_red - torch.einsum("fic,fid->cd", Cp, AinvCp)
-        g_red = g_red - torch.einsum("fic,fi->c", Cp, Ainvgp)
+        H_red = H_red - torch.einsum("pfic,pfid->pcd", Cp, AinvCp)
+        g_red = g_red - torch.einsum("pfic,pfi->pc", Cp, Ainvgp)
 
-    # not SPD -> NaN step (rejected by the LM loop), as LAPACK's potrf
-    # leaves it; cholesky_ex does not raise and does not synchronize
+    # not SPD -> NaN step for that problem (rejected by the LM loop), as
+    # LAPACK's potrf leaves it; cholesky_ex does not raise and does not
+    # synchronize
     Lc, info = torch.linalg.cholesky_ex(H_red)
-    Lc = torch.where(info == 0, Lc, torch.nan)
-    delta_c_h = -torch.cholesky_solve(g_red[:, None], Lc)[:, 0]
+    Lc = torch.where((info == 0)[:, None, None], Lc, torch.nan)
+    delta_c_h = -torch.cholesky_solve(g_red[..., None], Lc)[..., 0]
     delta_c = delta_c_h.to(dt)
 
-    pred = -torch.dot(ne["g_c"], delta_c) \
-        + lam * torch.dot(delta_c, dd_c.to(dt) * delta_c)
-    delta_f = ne["g_c"].new_zeros((max(Nf, 1), 6))
+    pred = -torch.sum(ne["g_c"] * delta_c, dim=1) \
+        + lam * torch.sum(delta_c * dd_c.to(dt) * delta_c, dim=1)
+    delta_f = ne["g_c"].new_zeros((P, max(Nf, 1), 6))
     if Nf:
-        rhs = -(gf_h + torch.einsum("fic,c->fi", Cf, delta_c_h))
-        delta_f = cholesky_solve_factored(L_f, rhs[..., None])[..., 0].to(dt)
-        pred = pred - torch.sum(gf * delta_f) \
-            + lam * torch.sum(delta_f * (dd_f.to(dt) * delta_f))
-    delta_p = ne["g_c"].new_zeros((max(Npv, 1), 3))
+        rhs = -(gf_h + torch.einsum("pfic,pc->pfi", Cf, delta_c_h))
+        delta_f = _back_substitute(L_f, rhs).to(dt)
+        pred = pred - torch.sum(gf * delta_f, dim=(1, 2)) \
+            + lam * torch.sum(delta_f * (dd_f.to(dt) * delta_f), dim=(1, 2))
+    delta_p = ne["g_c"].new_zeros((P, max(Npv, 1), 3))
     if Npv:
-        rhs = -(gp_h + torch.einsum("fic,c->fi", Cp, delta_c_h))
-        delta_p = cholesky_solve_factored(L_p, rhs[..., None])[..., 0].to(dt)
-        pred = pred - torch.sum(gp * delta_p) \
-            + lam * torch.sum(delta_p * (dd_p.to(dt) * delta_p))
+        rhs = -(gp_h + torch.einsum("pfic,pc->pfi", Cp, delta_c_h))
+        delta_p = _back_substitute(L_p, rhs).to(dt)
+        pred = pred - torch.sum(gp * delta_p, dim=(1, 2)) \
+            + lam * torch.sum(delta_p * (dd_p.to(dt) * delta_p), dim=(1, 2))
     return delta_c, delta_f, delta_p, pred
 
 
 def _delta_to_b(delta_c, delta_f, delta_p, spec: ProblemSpec):
-    """Map the block step onto the packed state vector layout."""
+    """Map the block step onto the packed state vector layout (with the
+    step's leading problem axis, if it has one)."""
     cl = _CLayout(spec)
+    lead = tuple(delta_c.shape[:-1])
     parts = []
     if spec.num_states_intrinsics:
-        parts.append(delta_c[:cl.e0])
+        parts.append(delta_c[..., :cl.e0])
     if spec.num_states_extrinsics:
-        parts.append(delta_c[cl.e0:cl.w0])
+        parts.append(delta_c[..., cl.e0:cl.w0])
     if spec.num_states_frames:
-        parts.append(delta_f[:spec.Nframes].reshape(-1))
+        parts.append(delta_f[..., :spec.Nframes, :].reshape(lead + (-1,)))
     if spec.num_states_points:
-        parts.append(delta_p[:spec.Npoints_variable].reshape(-1))
+        parts.append(delta_p[..., :spec.Npoints_variable, :]
+                     .reshape(lead + (-1,)))
     if spec.num_states_calobject_warp:
-        parts.append(delta_c[cl.w0:cl.w0 + 2])
+        parts.append(delta_c[..., cl.w0:cl.w0 + 2])
     if not parts:
-        return delta_c[:0]
-    return torch.cat(parts)
-
-
-def _g_to_b(ne, spec: ProblemSpec):
-    cl = _CLayout(spec)
-    parts = []
-    if spec.num_states_intrinsics:
-        parts.append(ne["g_c"][:cl.e0])
-    if spec.num_states_extrinsics:
-        parts.append(ne["g_c"][cl.e0:cl.w0])
-    if spec.num_states_frames:
-        parts.append(ne["g_f"][:spec.Nframes].reshape(-1))
-    if spec.num_states_points:
-        parts.append(ne["g_p"][:spec.Npoints_variable].reshape(-1))
-    if spec.num_states_calobject_warp:
-        parts.append(ne["g_c"][cl.w0:cl.w0 + 2])
-    if not parts:
-        return ne["g_c"][:0]
-    return torch.cat(parts)
+        return delta_c[..., :0]
+    return torch.cat(parts, dim=-1)
 
 
 # ----------------------------------------------------------------------------
@@ -1161,13 +1266,59 @@ def _lazy_h_K(spec: ProblemSpec, dtype, device):
     return 0
 
 
+def _lm_settings(update_threshold, dtype, quiet, ftol):
+    """(effective update threshold, ftol, benchmark mode) of a solve in
+    `dtype`."""
+    eff_threshold = _effective_threshold(update_threshold, dtype, quiet)
+    if ftol is None:
+        # f32 grinds at its ~1e-7 relative-E precision floor; f64 at
+        # roundoff.  Terminate when accepted improvements fall below it.
+        ftol = 1e-5 if dtype == torch.float32 else 1e-6
+    # benchmark mode (both thresholds exactly 0): run the full
+    # max_iterations, no plateau or trust-region-collapse exits
+    return eff_threshold, ftol, eff_threshold <= 0.0 and ftol <= 0.0
+
+
+def _lm_update(E, E_try, pred, db, lam, nu, E_ref, window, eff_threshold,
+               ftol, benchmark):
+    """The LM rules of one iteration, the JAX package's device loop's:
+    accept, the lambda control, the small-step exit, the 16-iteration
+    plateau and lambda > 1e12.  For one problem (E, E_try, pred, lam, nu,
+    E_ref 0-d, db (Nstate,)) or each of P (those (P,), db (P, Nstate)).
+    window: a host bool, 16 iterations since the plateau's reference.
+    Returns (accept, done, lam, nu, E_ref)."""
+    rho = torch.where(pred > 0, (E - E_try) / pred, -1.0)
+    finite = torch.isfinite(E_try)
+    accept = (E_try < E) & finite
+    # converged when the proposed step is below the threshold AND
+    # non-worsening
+    done = (torch.amax(torch.abs(db), dim=-1) < eff_threshold) & \
+        (E_try <= E) & finite
+    lam_down = torch.clamp_min(
+        lam * torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0),
+        _LAM_FLOOR)
+    lam_new = torch.where(accept, torch.where(rho > 0, lam_down, lam / 2.0),
+                          lam * nu)
+    nu = torch.where(accept, 2.0, nu * 2.0)
+    lam = torch.clamp_max(lam_new, 1e20)
+    if window:
+        # ftol over a WINDOW: 16 iterations with total relative E
+        # improvement below 16*ftol -> grinding at the precision floor
+        E_now = torch.where(accept, E_try, E)
+        if not benchmark:
+            done = done | ((E_ref - E_now) <= ftol * 16.0 * E_now)
+        E_ref = E_now
+    if not benchmark:
+        done = done | (lam > 1e12)
+    return accept, done, lam, nu, E_ref
+
+
 def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
              max_iterations=300, update_threshold=1e-7, dtype=None,
              quiet=False, lam0=1e-4, ftol=None, lazy_K=None, h32=False):
-    """Levenberg-Marquardt to convergence: the accept, lambda, small-step,
-    16-iteration plateau and lambda>1e12 rules of the JAX package's
-    device-resident loop, as one Python loop over tensors on the device of
-    `arrays`.  Each iteration reads one scalar (accept and done).
+    """Levenberg-Marquardt to convergence: the rules of _lm_update as one
+    Python loop over tensors on the device of `arrays`.  Each iteration
+    reads one scalar (accept and done).
 
     lazy_K > 0 is the lazy-Hessian mode: the H and C blocks refresh only
     on the (K+1)-th accepted step after the last refresh, while E, the
@@ -1181,16 +1332,10 @@ def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
     if dtype is not None:
         arrays = _cast_arrays(arrays, dtype)
         b0 = b0.to(dtype)
-    eff_threshold = _effective_threshold(update_threshold, b0.dtype, quiet)
-    if ftol is None:
-        # f32 grinds at its ~1e-7 relative-E precision floor; f64 at
-        # roundoff.  Terminate when accepted improvements fall below it.
-        ftol = 1e-5 if b0.dtype == torch.float32 else 1e-6
+    eff_threshold, ftol, benchmark = _lm_settings(update_threshold,
+                                                  b0.dtype, quiet, ftol)
     if lazy_K is None:
         lazy_K = _lazy_h_K(spec, b0.dtype, b0.device)
-    # benchmark mode (both thresholds exactly 0): run the full
-    # max_iterations, no plateau or trust-region-collapse exits
-    benchmark = eff_threshold <= 0.0 and ftol <= 0.0
     ne_fn = build_normal_equations(spec, arrays, static_idx, h32=h32)
     grad_fn = getattr(ne_fn, "gradient", None) or _make_grad_fn(spec)
 
@@ -1214,34 +1359,12 @@ def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
                 ne_try = dict(ne)                  # the stale H blocks
                 new = grad_fn(b_try, arrays)
                 ne_try.update({k: new[k] for k in _LAZY_H_GRAD_KEYS})
-            E = ne["E"]
-            E_try = ne_try["E"]
-            rho = torch.where(pred > 0, (E - E_try) / pred, -1.0)
-            finite = torch.isfinite(E_try)
-            accept = (E_try < E) & finite
-            # converged when the proposed step is below the threshold AND
-            # non-worsening
-            small = (torch.max(torch.abs(db)) < eff_threshold) & \
-                (E_try <= E) & finite
-            lam_up = lam * nu
-            lam_down = torch.clamp_min(
-                lam * torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3,
-                                      1.0 / 3.0), _LAM_FLOOR)
-            lam = torch.where(accept,
-                              torch.where(rho > 0, lam_down, lam / 2.0),
-                              lam_up)
-            nu = torch.where(accept, 2.0, nu * 2.0)
-            lam = torch.clamp_max(lam, 1e20)
-            # ftol over a WINDOW: 16 iterations with total relative E
-            # improvement below 16*ftol -> grinding at the precision floor
-            E_now = torch.where(accept, E_try, E)
-            plateaued = torch.zeros((), dtype=torch.bool, device=b.device)
-            if it + 1 - it_ref >= 16:
-                plateaued = (E_ref - E_now) <= ftol * 16.0 * E_now
-                E_ref, it_ref = E_now, it + 1
-            done = small
-            if not benchmark:
-                done = done | plateaued | (lam > 1e12)
+            window = it + 1 - it_ref >= 16
+            accept, done, lam, nu, E_ref = _lm_update(
+                ne["E"], ne_try["E"], pred, db, lam, nu, E_ref, window,
+                eff_threshold, ftol, benchmark)
+            if window:
+                it_ref = it + 1
             flags = int((accept.to(torch.int32)
                          + 2 * done.to(torch.int32)).item())
             if flags & 1:
@@ -1251,6 +1374,70 @@ def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
             if flags & 2:
                 break
     return b, ne["E"], it, ne
+
+
+def lm_solve_batch(spec: ProblemSpec, arrays, b0, static_idx, *,
+                   max_iterations=300, update_threshold=1e-7, dtype=None,
+                   quiet=False, lam0=1e-4, ftol=None):
+    """lm_solve for P problems of one structure in lockstep, as the JAX
+    package's vmap of its device loop runs them: b0 (P, Nstate), every
+    float array of `arrays` leading with P, the index arrays shared.
+
+    Every problem keeps its own lambda, nu, plateau reference, done flag
+    and iteration count.  The body runs on all P problems; a finished
+    problem is frozen (its b, normal equations, lambda and count stop
+    changing), and the batch runs until its slowest problem is done or
+    max_iterations.  The active problems share one iteration count, so
+    the plateau window's position is a host integer.  Each iteration
+    reads one scalar (all done).  No lazy-H and no h32: the splined
+    window assembly takes one problem.
+
+    Returns (b (P, Nstate), E (P,), niter (P,) int64, ne with a leading P
+    on every leaf), tensors on the device."""
+    if _splined_fast_path_ok(spec):
+        raise NotImplementedError(_SPLINED_BATCH_NOT_PORTED)
+    if dtype is not None:
+        arrays = _cast_arrays(arrays, dtype)
+        b0 = b0.to(dtype)
+    eff_threshold, ftol, benchmark = _lm_settings(update_threshold,
+                                                  b0.dtype, quiet, ftol)
+    ne_fn = build_normal_equations(spec, arrays, static_idx)
+    P = b0.shape[0]
+
+    with torch.no_grad():
+        b = b0
+        ne = ne_fn(b, arrays)
+        lam = torch.full((P,), lam0, dtype=b.dtype, device=b.device)
+        nu = torch.full((P,), 2.0, dtype=b.dtype, device=b.device)
+        E_ref, it_ref = ne["E"], 0
+        done = torch.zeros(P, dtype=torch.bool, device=b.device)
+        niter = torch.zeros(P, dtype=torch.int64, device=b.device)
+        it = 0
+        while it < max_iterations:
+            dc, df, dp, pred = schur_step(ne, lam, spec)
+            db = _delta_to_b(dc, df, dp, spec)
+            b_try = b + db
+            ne_try = ne_fn(b_try, arrays)
+            window = it + 1 - it_ref >= 16
+            accept, stop, lam_new, nu_new, E_ref_new = _lm_update(
+                ne["E"], ne_try["E"], pred, db, lam, nu, E_ref, window,
+                eff_threshold, ftol, benchmark)
+            active = ~done
+            accept = accept & active
+            b = torch.where(accept[:, None], b_try, b)
+            ne = {k: torch.where(_per_problem(accept, v), ne_try[k], v)
+                  for k, v in ne.items()}
+            lam = torch.where(active, lam_new, lam)
+            nu = torch.where(active, nu_new, nu)
+            if window:
+                E_ref = torch.where(active, E_ref_new, E_ref)
+                it_ref = it + 1
+            niter = niter + active
+            done = done | stop
+            it += 1
+            if bool(done.all()):
+                break
+    return b, ne["E"], niter, ne
 
 
 def _mark_outliers(spec: ProblemSpec, obs_board_np, x_board,
@@ -1354,19 +1541,21 @@ def _mark_outliers(spec: ProblemSpec, obs_board_np, x_board,
 
 def _fetch_solution_np(b, ne, E):
     """ONE device->host readback of everything optimize() needs on the
-    host: packed state, residual vectors, E (as float64 numpy)."""
-    pieces = [b.reshape(-1), ne["x_board"].reshape(-1),
-              ne["x_point"].reshape(-1), ne["x_tri"].reshape(-1),
-              ne["x_reg"].reshape(-1), E.reshape(1).to(b.dtype)]
-    sizes = [int(p.shape[0]) for p in pieces]
-    flat = torch.cat(pieces).cpu().numpy().astype(np.float64)
+    host: packed state, residual vectors, E (as float64 numpy).  For a
+    batch (b (P, Nstate)) each leads with P, and E is (P,)."""
+    lead = tuple(b.shape[:-1])
+    pieces = [t.reshape(lead + (-1,)).to(b.dtype)
+              for t in (b, ne["x_board"], ne["x_point"], ne["x_tri"],
+                        ne["x_reg"], E)]
+    sizes = [int(p.shape[-1]) for p in pieces]
+    flat = torch.cat(pieces, dim=-1).cpu().numpy().astype(np.float64)
     out = {}
     off = 0
     for name, n in zip(("b", "x_board", "x_point", "x_tri", "x_reg", "E"),
                        sizes):
-        out[name] = flat[off:off + n]
+        out[name] = flat[..., off:off + n]
         off += n
-    out["E"] = float(out["E"][0])
+    out["E"] = out["E"][..., 0] if lead else float(out["E"][0])
     return out
 
 
@@ -1424,60 +1613,40 @@ def _check_options(kw):
             "optimize(device_loop=False): the port has one LM loop")
 
 
-def optimize(*, device=None, **kw):
-    """Full solve: the mrcal.optimize equivalent.
-
-    device: where the solve runs; None means the CUDA card (and raises
-    without one), "cpu" runs on the CPU.  precision: 'f64' (default),
-    'f32', or 'mixed' (f32 phase to approximate convergence, then an f64
-    polish).
-
-    Mutates the input numpy arrays (intrinsics, extrinsics_rt_fromref,
-    frames_rt_toref, points, calobject_warp, and observation weights for
-    outlier marking) like the reference does, and returns a stats dict.
-    check_gradient=True compares the Jacobian with central differences
-    instead, and returns that report without solving."""
-    _check_options(kw)
-    device = resolve_device(device)
-    timer = _SolveTimer()
-    kw = _layout.normalize_inputs(kw)
-    max_iterations = int(kw.get("max_iterations", 300))
-    update_threshold = float(kw.get("update_threshold", 1e-7))
-    spec = spec_from_inputs(**kw)
-    require_ported(spec.lensmodel)
-
-    # the caller's arrays, mutated in place by outlier marking
-    np_obs_board = np.asarray(kw["observations_board"]) \
-        if kw.get("observations_board") is not None else None
-    np_obs_tri = np.asarray(kw["observations_point_triangulated"]) \
-        if kw.get("observations_point_triangulated") is not None else None
-    if np_obs_tri is not None and not len(np_obs_tri):
-        np_obs_tri = None
-
-    with timer.phase("pack"):
-        arrays = arrays_from_inputs(kw, device=device, dtype=DEFAULT_DTYPE)
-        b = pack_params(params_from_arrays(arrays), spec)
-
-    def _idx_np(name):
-        a = kw.get(name)
-        return (np.zeros((0, 3), np.int64) if a is None
-                else np.asarray(a, np.int64).reshape(-1, 3))
-    static_idx = dict(
-        board=_idx_np("indices_frame_camintrinsics_camextrinsics"),
-        point=_idx_np("indices_point_camintrinsics_camextrinsics"))
-
-    if kw.get("check_gradient"):
-        # the reference's semantics: check the Jacobian column by column
-        # against finite differences, and return without solving
-        from .jacobian import _check_gradient_report
-        return _check_gradient_report(spec, arrays, b)
-
+def _precision(kw):
     precision = kw.get("precision")
     if precision is None:
         mp = kw.get("mixed_precision")
         precision = "f64" if mp is None else ("mixed" if mp else "f64")
     if precision not in ("mixed", "f32", "f64"):
         raise ValueError(f"unknown precision={precision!r}")
+    return precision
+
+
+def _static_idx(kw):
+    """Host copies of a problem's board and point index arrays."""
+    def idx(name):
+        a = kw.get(name)
+        return (np.zeros((0, 3), np.int64) if a is None
+                else np.asarray(a, np.int64).reshape(-1, 3))
+    return dict(board=idx("indices_frame_camintrinsics_camextrinsics"),
+                point=idx("indices_point_camintrinsics_camextrinsics"))
+
+
+def _np_observations(kw):
+    """The caller's board and triangulated observation arrays (None where
+    a problem has none), which outlier marking mutates in place."""
+    obs_b = kw.get("observations_board")
+    obs_t = kw.get("observations_point_triangulated")
+    return (None if obs_b is None else np.asarray(obs_b),
+            None if obs_t is None or not len(obs_t) else np.asarray(obs_t))
+
+
+def _solver(lm, spec, arrays, static_idx, kw):
+    """solve(b, **overrides) -> lm(spec, arrays, b, static_idx, ...) with
+    the caller's max_iterations, update_threshold and ftol."""
+    max_iterations = int(kw.get("max_iterations", 300))
+    update_threshold = float(kw.get("update_threshold", 1e-7))
     ftol = kw.get("ftol")
 
     def solve(b, **solve_kw):
@@ -1485,59 +1654,44 @@ def optimize(*, device=None, **kw):
         solve_kw.setdefault("update_threshold", update_threshold)
         if ftol is not None:
             solve_kw.setdefault("ftol", ftol)
-        return lm_solve(spec, arrays, b, static_idx, **solve_kw)
+        return lm(spec, arrays, b, static_idx, **solve_kw)
 
-    total_niter = 0
-    niter_polish = 0
-    Noutliers = 0
-    Noutliers_tri = 0
-    outlier_loop = spec.selections.do_apply_outlier_rejection and (
-        spec.Nobservations_board or np_obs_tri is not None)
-    px_tri_np = idx_tri_np = None
-    if outlier_loop and np_obs_tri is not None:
-        px_tri_np = arrays["px_triangulated"].cpu().numpy()
-        idx_tri_np = arrays["indices_triangulated"].cpu().numpy()
-    while True:
-        if precision == "f32":
-            with timer.phase("solve_f32"):
-                b, E, niter, ne = solve(b, dtype=torch.float32, quiet=True)
-        elif precision == "mixed":
-            f32_kw = {}
-            if kw.get("ftol_f32") is not None:
-                f32_kw["ftol"] = float(kw["ftol_f32"])
-            with timer.phase("solve_f32"):
-                b32, _, niter32, _ = solve(b, dtype=torch.float32,
-                                           quiet=True, **f32_kw)
-            b = b32.to(torch.float64)
-            with timer.phase("solve_polish_f64"):
-                b, E, niter, ne = solve(b, max_iterations=300,
-                                        update_threshold=update_threshold)
-            niter_polish += niter
-            niter += niter32
-        else:
-            with timer.phase("solve_f64"):
-                b, E, niter, ne = solve(b)
-        total_niter += niter
-        with timer.phase("fetch"):
-            sol = _fetch_solution_np(b, ne, E)
-        blocks_np = _unpack_state_np(sol["b"], spec)
-        if not outlier_loop:
-            break
-        with timer.phase("outlier_rejection"):
-            found, Noutliers, Noutliers_tri = _mark_outliers(
-                spec, np_obs_board, sol["x_board"], obs_tri_np=np_obs_tri,
-                x_tri=sol["x_tri"], px_tri=px_tri_np, idx_tri=idx_tri_np,
-                extrinsics=blocks_np.get("extrinsics",
-                                         kw.get("extrinsics_rt_fromref")))
-        if not found:
-            break
-        for name, a in (("observations_board", np_obs_board),
-                        ("observations_point_triangulated", np_obs_tri)):
-            if a is not None:
-                arrays[name] = torch.as_tensor(a, dtype=arrays[name].dtype,
-                                               device=device)
+    return solve
 
-    # write back the solution (only the OPTIMIZED slices)
+
+def _solve_in_precision(solve, b, precision, kw, timer):
+    """One solve of the outlier loop in `precision`: 'f64', 'f32', or
+    'mixed' (an f32 phase to approximate convergence, then an f64 polish).
+    solve: a _solver of one problem or of a batch.  Returns (b, E, niter,
+    niter_polish, ne)."""
+    if precision == "f32":
+        with timer.phase("solve_f32"):
+            b, E, niter, ne = solve(b, dtype=torch.float32, quiet=True)
+        return b, E, niter, 0, ne
+    if precision == "mixed":
+        f32_kw = ({} if kw.get("ftol_f32") is None
+                  else dict(ftol=float(kw["ftol_f32"])))
+        with timer.phase("solve_f32"):
+            b32, _, niter32, _ = solve(b, dtype=torch.float32, quiet=True,
+                                       **f32_kw)
+        with timer.phase("solve_polish_f64"):
+            b, E, niter, ne = solve(b32.to(torch.float64),
+                                    max_iterations=300)
+        return b, E, niter + niter32, niter, ne
+    with timer.phase("solve_f64"):
+        b, E, niter, ne = solve(b)
+    return b, E, niter, 0, ne
+
+
+def _upload(arrays, name, a):
+    """Replace arrays[name] by the numpy array a (the outlier marks)."""
+    arrays[name] = torch.as_tensor(a, dtype=arrays[name].dtype,
+                                   device=arrays[name].device)
+
+
+def _write_back(kw, spec: ProblemSpec, blocks_np):
+    """Write a solution into the caller's numpy arrays (only the OPTIMIZED
+    slices)."""
     if "intrinsics_state" in blocks_np and kw.get("intrinsics") is not None:
         intr_np = np.asarray(kw["intrinsics"])
         blk = blocks_np["intrinsics_state"]
@@ -1561,24 +1715,299 @@ def optimize(*, device=None, **kw):
         np.copyto(np.asarray(kw["calobject_warp"]),
                   blocks_np["calobject_warp"])
 
-    x = np.concatenate([sol["x_board"], sol["x_point"], sol["x_tri"],
-                        sol["x_reg"]])
+
+def _stats(spec: ProblemSpec, sol, Noutliers, Noutliers_tri, niter,
+           niter_polish, time_s):
+    """optimize()'s stats dict from one problem's fetched solution."""
     return dict(
         rms_reproj_error__pixels=float(
-            np.sqrt(sol["E"] / max(spec.Nmeasurements, 1))),
+            np.sqrt(float(sol["E"]) / max(spec.Nmeasurements, 1))),
         Noutliers=Noutliers,
         Noutliers_board=Noutliers,
         Noutliers_triangulated_point=Noutliers_tri,
-        niterations=total_niter,
+        niterations=niter,
         niterations_polish=niter_polish,
-        time_s={k: round(v, 6) for k, v in timer.t.items()},
+        time_s=time_s,
         b_packed=sol["b"],
-        x=x,
+        x=np.concatenate([sol["x_board"], sol["x_point"], sol["x_tri"],
+                          sol["x_reg"]]),
     )
 
 
-def optimize_batch(*args, **kwargs):
-    """Not ported yet: ROADMAP queue 1 item 10 (batched solves)."""
-    raise NotImplementedError(
-        "optimize_batch is not ported yet: ROADMAP queue 1 item 10 "
-        "(batched solves)")
+def optimize(*, device=None, **kw):
+    """Full solve: the mrcal.optimize equivalent.
+
+    device: where the solve runs; None means the CUDA card (and raises
+    without one), "cpu" runs on the CPU.  precision: 'f64' (default),
+    'f32', or 'mixed' (f32 phase to approximate convergence, then an f64
+    polish).
+
+    Mutates the input numpy arrays (intrinsics, extrinsics_rt_fromref,
+    frames_rt_toref, points, calobject_warp, and observation weights for
+    outlier marking) like the reference does, and returns a stats dict.
+    check_gradient=True compares the Jacobian with central differences
+    instead, and returns that report without solving."""
+    _check_options(kw)
+    device = resolve_device(device)
+    timer = _SolveTimer()
+    kw = _layout.normalize_inputs(kw)
+    spec = spec_from_inputs(**kw)
+    require_ported(spec.lensmodel)
+
+    # the caller's arrays, mutated in place by outlier marking
+    np_obs_board, np_obs_tri = _np_observations(kw)
+
+    with timer.phase("pack"):
+        arrays = arrays_from_inputs(kw, device=device, dtype=DEFAULT_DTYPE)
+        b = pack_params(params_from_arrays(arrays), spec)
+    static_idx = _static_idx(kw)
+
+    if kw.get("check_gradient"):
+        # the reference's semantics: check the Jacobian column by column
+        # against finite differences, and return without solving
+        from .jacobian import _check_gradient_report
+        return _check_gradient_report(spec, arrays, b)
+
+    precision = _precision(kw)
+    solve = _solver(lm_solve, spec, arrays, static_idx, kw)
+    total_niter = 0
+    niter_polish = 0
+    Noutliers = 0
+    Noutliers_tri = 0
+    outlier_loop = spec.selections.do_apply_outlier_rejection and (
+        spec.Nobservations_board or np_obs_tri is not None)
+    px_tri_np = idx_tri_np = None
+    if outlier_loop and np_obs_tri is not None:
+        px_tri_np = arrays["px_triangulated"].cpu().numpy()
+        idx_tri_np = arrays["indices_triangulated"].cpu().numpy()
+    while True:
+        b, E, niter, polish, ne = _solve_in_precision(solve, b, precision,
+                                                      kw, timer)
+        total_niter += niter
+        niter_polish += polish
+        with timer.phase("fetch"):
+            sol = _fetch_solution_np(b, ne, E)
+        blocks_np = _unpack_state_np(sol["b"], spec)
+        if not outlier_loop:
+            break
+        with timer.phase("outlier_rejection"):
+            found, Noutliers, Noutliers_tri = _mark_outliers(
+                spec, np_obs_board, sol["x_board"], obs_tri_np=np_obs_tri,
+                x_tri=sol["x_tri"], px_tri=px_tri_np, idx_tri=idx_tri_np,
+                extrinsics=blocks_np.get("extrinsics",
+                                         kw.get("extrinsics_rt_fromref")))
+        if not found:
+            break
+        for name, a in (("observations_board", np_obs_board),
+                        ("observations_point_triangulated", np_obs_tri)):
+            if a is not None:
+                _upload(arrays, name, a)
+
+    _write_back(kw, spec, blocks_np)
+    return _stats(spec, sol, Noutliers, Noutliers_tri, total_niter,
+                  niter_polish, {k: round(v, 6) for k, v in timer.t.items()})
+
+
+# ----------------------------------------------------------------------------
+# batched solves: many same-structure problems in lockstep
+# ----------------------------------------------------------------------------
+
+_SPLINED_BATCH_NOT_PORTED = (
+    "optimize_batch of a splined model with its core locked (the "
+    "spline-window assembly) is not ported yet: ROADMAP queue 1 item 14 "
+    "(the batched spline-window assembly)")
+
+
+def _stack_arrays(arrays_list):
+    """The arrays of P problems of one structure as one batch: the float
+    arrays stacked on a leading P axis, the index arrays the first
+    problem's."""
+    return {k: (torch.stack([a[k] for a in arrays_list])
+                if v.is_floating_point() else v)
+            for k, v in arrays_list[0].items()}
+
+
+def optimize_batch(problems, *, device=None, **common_kw):
+    """Solve many calibration problems of one structure as one batch, the
+    JAX package's serving mode: their LM loops run in lockstep (finished
+    problems freeze while the rest iterate), each iteration's work on all
+    problems at once, so a batch of P takes about the launches of one
+    problem.
+
+    problems: a list of mrcal-style optimization_inputs dicts that share
+    the lens model, the counts and the board and point index arrays (a
+    fleet of calibrations from one rig design; see
+    pad_problems_to_common_structure for units that see different
+    views); the float inputs differ per problem.  common_kw:
+    max_iterations, update_threshold, ftol, precision ('f64' (default),
+    'f32' or 'mixed', as optimize()).  device: None means the CUDA card,
+    "cpu" the CPU.
+
+    Like optimize(), MUTATES each problem's arrays with its solution and
+    runs the outlier-rejection loop: each problem is marked on the host,
+    and when any problem found outliers the whole batch is solved again
+    from its current solutions.  Returns a list of per-problem stats with
+    optimize()'s keys; time_s is the batch's, and Noutliers counts every
+    observation of weight <= 0, padding rows included.
+
+    Splined models with the core locked (the spline-window assembly)
+    raise NotImplementedError."""
+    if not problems:
+        return []
+    _check_options(common_kw)
+    for p in problems:
+        _check_options(p)
+    kws = [_layout.normalize_inputs(dict(p)) for p in problems]
+    specs = [spec_from_inputs(**kw) for kw in kws]
+    spec = specs[0]
+    require_ported(spec.lensmodel)
+    if _splined_fast_path_ok(spec):
+        raise NotImplementedError(_SPLINED_BATCH_NOT_PORTED)
+    if any(s != spec for s in specs[1:]):
+        raise ValueError("optimize_batch needs identical problem "
+                         "structure across the batch")
+    static_idx = _static_idx(kws[0])
+    for kw in kws[1:]:
+        for k, v in _static_idx(kw).items():
+            if not np.array_equal(v, static_idx[k]):
+                raise ValueError(f"optimize_batch needs identical {k} "
+                                 "indices across the batch")
+    device = resolve_device(device)
+    precision = _precision(common_kw)
+    timer = _SolveTimer()
+    P = len(kws)
+    np_obs = [_np_observations(kw) for kw in kws]
+
+    with timer.phase("pack"):
+        arrays = _stack_arrays([arrays_from_inputs(kw, device=device)
+                                for kw in kws])
+        b = pack_params(params_from_arrays(arrays), spec)
+    solve = _solver(lm_solve_batch, spec, arrays, static_idx, common_kw)
+    total_niter = np.zeros(P, np.int64)
+    niter_polish = np.zeros(P, np.int64)
+    Nout_tri = np.zeros(P, np.int64)
+    have_tri = np_obs[0][1] is not None
+    outlier_loop = spec.selections.do_apply_outlier_rejection and (
+        spec.Nobservations_board or have_tri)
+    if outlier_loop and have_tri:
+        px_tri_np = arrays["px_triangulated"].cpu().numpy()
+        idx_tri_np = arrays["indices_triangulated"].cpu().numpy()
+    while True:
+        b, E, niter, polish, ne = _solve_in_precision(
+            solve, b, precision, common_kw, timer)
+        with timer.phase("fetch"):
+            sol = _fetch_solution_np(b, ne, E)
+            total_niter += niter.cpu().numpy()
+            if torch.is_tensor(polish):
+                niter_polish += polish.cpu().numpy()
+        blocks_np = [_unpack_state_np(sol["b"][i], spec) for i in range(P)]
+        if not outlier_loop:
+            break
+        found_any = False
+        with timer.phase("outlier_rejection"):
+            for i, (obs_b, obs_t) in enumerate(np_obs):
+                found, _, Nout_tri[i] = _mark_outliers(
+                    spec, obs_b, sol["x_board"][i], obs_tri_np=obs_t,
+                    x_tri=sol["x_tri"][i],
+                    px_tri=px_tri_np[i] if have_tri else None,
+                    idx_tri=idx_tri_np if have_tri else None,
+                    extrinsics=blocks_np[i].get(
+                        "extrinsics", kws[i].get("extrinsics_rt_fromref")))
+                found_any |= found
+        if not found_any:
+            break
+        for j, name in enumerate(("observations_board",
+                                  "observations_point_triangulated")):
+            if np_obs[0][j] is not None:
+                _upload(arrays, name, np.stack([o[j] for o in np_obs]))
+
+    time_s = {k: round(v, 6) for k, v in timer.t.items()}
+    stats = []
+    for i, (kw, (obs_b, _)) in enumerate(zip(kws, np_obs)):
+        _write_back(kw, spec, blocks_np[i])
+        Nout = int(np.sum(obs_b[..., 2] <= 0)) if obs_b is not None else 0
+        stats.append(_stats(spec, {k: v[i] for k, v in sol.items()}, Nout,
+                            int(Nout_tri[i]), int(total_niter[i]),
+                            int(niter_polish[i]), dict(time_s)))
+    return stats
+
+
+def pad_problems_to_common_structure(problems):
+    """Make a HETEROGENEOUS fleet batchable by optimize_batch.
+
+    optimize_batch requires identical observation-index structure across
+    the batch.  Real fleets share a rig DESIGN (same cameras, frames,
+    lensmodel) but differ in per-unit visibility: some units miss some
+    board views or point observations.  This builds the UNION of the
+    board/point index rows across the batch and returns adjusted copies
+    of the problems where every unit carries the same index arrays; rows
+    a unit lacks are padded with weight=-1 observations (the outlier
+    idiom: weight<=0 zeroes the residual AND the Jacobian rows, so
+    padding contributes nothing to the solve).
+
+    Padding rows count as outliers in the returned stats' Noutliers
+    (weight<=0); subtract the per-unit pad count if the distinction
+    matters.  Triangulated-point sets are not padded (their set/last
+    structure is positional): problems carrying DIFFERING triangulated
+    sets raise.
+
+    Returns a new list of optimization_inputs dicts (inputs unchanged;
+    observation arrays are fresh copies, other arrays shared)."""
+    kws = [_layout.normalize_inputs(dict(p)) for p in problems]
+
+    tri0 = kws[0].get(
+        "indices_point_triangulated_camintrinsics_camextrinsics")
+    for kw in kws[1:]:
+        t = kw.get(
+            "indices_point_triangulated_camintrinsics_camextrinsics")
+        if (t is None) != (tri0 is None) or \
+                (t is not None and not np.array_equal(
+                    np.asarray(t), np.asarray(tri0))):
+            raise ValueError("pad_problems_to_common_structure: "
+                             "triangulated-point sets must already be "
+                             "identical across the batch")
+
+    def union_rows(key):
+        rows = set()
+        for kw in kws:
+            idx = kw.get(key)
+            if idx is not None:
+                rows.update(map(tuple, np.asarray(idx, np.int32)))
+        return np.asarray(sorted(rows), np.int32).reshape(-1, 3) \
+            if rows else None
+
+    ub = union_rows("indices_frame_camintrinsics_camextrinsics")
+    up = union_rows("indices_point_camintrinsics_camextrinsics")
+
+    out = []
+    for kw in kws:
+        kw = dict(kw)
+        if ub is not None:
+            obs = kw.get("observations_board")
+            if obs is None:
+                raise ValueError("board indices without observations")
+            new = np.zeros((len(ub),) + np.asarray(obs).shape[1:])
+            new[..., 2] = -1.0                     # padding = outlier
+            pos = {tuple(r): i for i, r in enumerate(
+                np.asarray(kw["indices_frame_camintrinsics_"
+                              "camextrinsics"], np.int32))}
+            for j, r in enumerate(map(tuple, ub)):
+                if r in pos:
+                    new[j] = np.asarray(obs)[pos[r]]
+            kw["observations_board"] = new
+            kw["indices_frame_camintrinsics_camextrinsics"] = ub.copy()
+        if up is not None:
+            obs = kw.get("observations_point")
+            new = np.zeros((len(up), 3))
+            new[:, 2] = -1.0
+            if obs is not None:
+                pos = {tuple(r): i for i, r in enumerate(
+                    np.asarray(kw["indices_point_camintrinsics_"
+                                  "camextrinsics"], np.int32))}
+                for j, r in enumerate(map(tuple, up)):
+                    if r in pos:
+                        new[j] = np.asarray(obs)[pos[r]]
+            kw["observations_point"] = new
+            kw["indices_point_camintrinsics_camextrinsics"] = up.copy()
+        out.append(kw)
+    return out

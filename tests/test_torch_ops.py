@@ -148,7 +148,8 @@ def test_kernel_matches_plain_on_card(dtype):
     dt = getattr(torch, dtype)
     tol = 1e-12 if dt == torch.float64 else 1e-5
     rng = np.random.default_rng(0)
-    for B, n, K in [(84, 6, 14), (84, 6, 1), (500, 3, 4), (1000, 6, 3)]:
+    for B, n, K in [(84, 6, 14), (84, 6, 1), (500, 3, 4), (1000, 6, 3),
+                    (5376, 6, 15), (320, 6, 285)]:
         A, rhs = _spd(rng, B, n, K)
         A_d = torch.as_tensor(A, dtype=dt, device="cuda")
         rhs_d = torch.as_tensor(rhs, dtype=dt, device="cuda")
@@ -163,10 +164,12 @@ def test_kernel_matches_plain_on_card(dtype):
         assert ((x - x_p).abs().max() / x_p.abs().max()).item() < tol
 
 
-# (B, n, K): the Schur step's shapes on opencv8_1cam and rig16cam, a ragged
-# B, K just past a warp, many blocks (K = 0: the fused entry with no
-# right-hand side) and B = 0
+# (B, n, K): the Schur step's shapes on opencv8_1cam and rig16cam, and on
+# batches of them (64 opencv8_1cam units, 8 rig16cam units: every unit's
+# frame blocks in one launch), a ragged B, K just past a warp, many blocks
+# (K = 0: the fused entry with no right-hand side) and B = 0
 _CARD_SHAPES = [(84, 6, 15), (84, 6, 1), (40, 6, 285), (40, 6, 1),
+                (5376, 6, 15), (5376, 6, 1), (320, 6, 285), (320, 6, 1),
                 (131, 6, 33), (131, 3, 4), (70000, 6, 15), (70001, 6, 1),
                 (70001, 3, 1), (70000, 6, 0), (0, 6, 15)]
 
