@@ -57,10 +57,32 @@ nonzero:
    entries agree, and x and J agree to 1e-12 of their largest entry.
    Then optimize(check_gradient=True) on a small board problem and on a
    small splined one, card against CPU.
-   triangulate: the six two-view wrappers (with their gradients),
-   rotate_point_R and unproject_core (PINHOLE, OPENCV8) on the card, the
-   wrappers' default device, against the CPU, to 1e-12.
-6. batch: optimize_batch runs many problems of one structure in
+   triangulate: the six two-view wrappers (with their gradients), the
+   pose functions (rotate_point_R; R_from_r, rotate_point_r and
+   transform_point_rt with their gradients; compose_r and compose_rt
+   three-way, with gradients and inverted0/inverted1) and unproject_core
+   (PINHOLE, OPENCV8) on the card, the wrappers' default device, against
+   the CPU, to 1e-12.
+6. mesh: the multi-device path (mrcal_tpu_torch.parallel), the
+   observations sharded over a torch.distributed group.
+   nccl1: a one-rank NCCL group (a file store in a temporary directory,
+   loopback only); opencv8_1cam by optimize(mesh=1) in f64, held to the
+   main path's rms and iteration gates and to the unsharded optimize()'s
+   E (sum x^2) at MESH_E_RTOL, one fused launch at (84, 6, 15) and one
+   back-substitution at (84, 6, 1) per iteration; its ms per iteration
+   against the unsharded solve's, timed in turns (unsharded, mesh, mesh,
+   unsharded); the all-reduce calls per normal-equation evaluation, and
+   the bytes held equal to collective_bytes_per_iteration; mixed through
+   the mesh (the main path's mixed gate); then splined_30x18 on the same
+   mesh in f64 (its rms and iteration gates, the fused solve at K = 1083,
+   its bytes held to collective_bytes_per_iteration).
+   gloo2: two processes share the one card over gloo (NCCL takes one rank
+   per card); opencv8_1cam by optimize(mesh=2) in f64 on each, held to
+   the unsharded E at MESH_E_RTOL and b_packed at MESH_B_ATOL (the
+   update threshold), with b bit-identical on both ranks; then
+   dryrun_multichip(2) (two ranks sharing the card over gloo: 3
+   iterations of an OPENCV8 and a 9x7-knot splined problem).
+7. batch: optimize_batch runs many problems of one structure in
    lockstep, in f64 (a short warm-up, then a timed solve with the
    kernels' launch counts and shapes and the peak memory):
    fleet: 64 units of opencv8_1cam (unit 0 the main path's problem;
@@ -86,14 +108,14 @@ nonzero:
    Each prints its wall, lockstep and per-unit iterations, problems per
    second, ms per lockstep iteration, the peak memory and P times the
    single solve's wall.
-7. kernel times: each kernel at the shapes of phase 3 in f64 (CUDA
+8. kernel times: each kernel at the shapes of phase 3 in f64 (CUDA
    events, and device time per launch from torch.profiler) beside its
    plain version, the PyTorch library call and its bound, and beside the
    launch floor (a one-element torch.add).
-8. profile: one more f64 solve of each configuration, and of the fleet,
+9. profile: one more f64 solve of each configuration, and of the fleet,
    under torch.profiler (device time by kernel, launches per iteration,
    busy share).
-9. the last line: {"ok": true, "device": {...}}.
+10. the last line: {"ok": true, "device": {...}}.
 
 The timed solves come before any profiler session or kernel timing, so
 that those do not weigh on the solves' wall time.
@@ -103,6 +125,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -187,6 +210,14 @@ DEEP_KW = dict(SOLVE_KW, ftol=1e-10)
 # unit 0 is held to ending on the small-step rule, before the first
 # plateau window closes
 SFM_BATCH_NITER_RANGE = (SFM_NITER_RANGE[0], 15)
+# the mesh phases against the unsharded solve: E = sum x^2 relative, and
+# (two ranks) b_packed absolute, in packed units.  Two ranks sum the
+# normal equations in another order, and the converged b is resolved only
+# to the solve's update threshold: on the card the two-rank opencv8_1cam
+# solve took the unsharded 32 iterations and ended 2.0e-8 from its b, E
+# 7.1e-11 relative apart (PERF.md)
+MESH_E_RTOL = 1e-10
+MESH_B_ATOL = SOLVE_KW["update_threshold"]
 
 
 def fail(msg):
@@ -802,17 +833,17 @@ def phase_check_gradient(torch, **mk):
 
 
 def phase_triangulate(torch):
-    """The public two-view wrappers (with get_gradients), rotate_point_R
-    and unproject_core on the card against the CPU.  The wrappers get
-    numpy arrays and no device: the card is their default."""
-    from mrcal_tpu_torch import (R_from_r, lensmodels, rotate_point_R,
-                                 triangulation)
+    """The public two-view wrappers (with get_gradients), the pose
+    functions and unproject_core on the card against the CPU.  The
+    wrappers get numpy arrays and no device: the card is their default."""
+    from mrcal_tpu_torch import (R_from_r, compose_r, compose_rt, lensmodels,
+                                 rotate_point_R, rotate_point_r,
+                                 transform_point_rt, triangulation)
     rng = np.random.default_rng(4)
     N = 4096
     p = rng.normal(size=(N, 3)) * [2.0, 1.0, 1.0] + [0.0, 0.0, 8.0]
     t01 = np.array([1.0, 0.1, -0.2])
-    R01 = R_from_r(torch.tensor([0.02, -0.1, 0.03],
-                                dtype=torch.float64)).numpy()
+    R01 = R_from_r([0.02, -0.1, 0.03], device="cpu").numpy()
     v0 = p + rng.normal(size=(N, 3)) * 0.01
     v1 = p - t01 + rng.normal(size=(N, 3)) * 0.01
     v1[0] = -v1[0]                         # diverging rays: (0,0,0)
@@ -830,6 +861,20 @@ def phase_triangulate(torch):
         dict(v_are_local=True, Rt01=Rt01))
     calls["rotate_point_R"] = (rotate_point_R, (R01, v1_local),
                                dict(get_gradients=True))
+    r = rng.normal(size=(3, N, 3)) * 0.3
+    rt = np.concatenate([r, rng.normal(size=(3, N, 3))], axis=-1)
+    calls["R_from_r"] = (R_from_r, (r[0],), dict(get_gradients=True))
+    for name, fn, a in (("rotate_point_r", rotate_point_r, r[0]),
+                        ("transform_point_rt", transform_point_rt, rt[0])):
+        for inverted in (False, True):
+            calls[f"{name} inverted={inverted}"] = (
+                fn, (a, v1), dict(get_gradients=True, inverted=inverted))
+    for name, fn, a in (("compose_r", compose_r, r),
+                        ("compose_rt", compose_rt, rt)):
+        calls[f"{name} three-way"] = (fn, tuple(a), {})
+        for flags in ({}, dict(inverted0=True), dict(inverted1=True)):
+            calls[f"{name} get_gradients {flags}"] = (
+                fn, tuple(a[:2]), dict(get_gradients=True, **flags))
     worst = {}
     for name, (fn, args, kw) in calls.items():
         out_g = fn(*args, **kw)
@@ -1109,6 +1154,206 @@ def phase_batch_sfm(torch, single_wall):
     return units, summary
 
 
+def mesh_solve(torch, phase, oi, mesh, shape):
+    """One counted f64 solve of oi on the mesh (None: unsharded): the
+    kernels' launch counts and shapes, the mesh's collective counts and
+    the wall."""
+    from mrcal_tpu_torch import optimize
+    from mrcal_tpu_torch.ops import batched_cholesky as bc
+    kw = {} if mesh is None else dict(mesh=mesh)
+    oi = _copy(oi)
+    if mesh is not None:
+        mesh.reset_counts()
+    torch.cuda.synchronize()
+    bc.reset_launches()
+    with KernelShapes() as ks:
+        t0 = time.perf_counter()
+        stats = optimize(precision="f64", **SOLVE_KW, **kw, **oi)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    niter = stats["niterations"]
+    out = dict(rms=stats["rms_reproj_error__pixels"], E=_E(stats),
+               niterations=niter, wall_s=wall,
+               ms_per_iteration=wall / niter * 1e3,
+               launches=dict(bc.launches),
+               shapes={k: sorted(set(v)) for k, v in ks.shapes.items()})
+    if mesh is not None:
+        out["collectives"] = dict(mesh.counts)
+        out["bytes_reduced"] = mesh.bytes_reduced
+    log(f"[{phase}] f64{'' if mesh is None else ' on ' + repr(mesh)}: rms "
+        f"{out['rms']!r} px in {niter} iterations, {wall:.4f} s, "
+        f"{out['ms_per_iteration']:.3f} ms/iteration, launches "
+        f"{out['launches']}, shapes {out['shapes']}"
+        + ("" if mesh is None else f", collectives {out['collectives']}"))
+    if not np.isfinite(stats["x"]).all():
+        fail(f"[{phase}] non-finite residuals")
+    if shape is not None:
+        check_launches_per_iteration(phase, out["launches"], niter)
+        want = {"cholesky_factor_solve": [shape],
+                "cholesky_solve_factored": [shape[:2] + (1,)]}
+        if out["shapes"] != want:
+            fail(f"[{phase}] the kernels ran at {out['shapes']}, not {want}")
+    return stats, out
+
+
+def check_bytes(phase, name, m):
+    """The bytes all-reduced per normal-equation evaluation equal
+    collective_bytes_per_iteration's count for the solve (f64, no
+    float32 H)."""
+    log(f"[{phase}] {name}: {m['bytes_per_evaluation']:.0f} bytes all-reduced "
+        f"per evaluation, collective_bytes_per_iteration "
+        f"{m['collective_bytes_per_iteration']}")
+    if m["bytes_per_evaluation"] != m["collective_bytes_per_iteration"]:
+        fail(f"[{phase}] {name}: the bytes all-reduced per evaluation differ "
+             "from collective_bytes_per_iteration")
+
+
+def phase_mesh_nccl1(torch, oi_main, oi_splined):
+    """opencv8_1cam and splined_30x18 by optimize(mesh=1) on a one-rank
+    NCCL group, against the unsharded solve in the same call."""
+    import torch.distributed as dist
+    from mrcal_tpu_torch import optimize
+    from mrcal_tpu_torch.optimize import spec_from_inputs
+    from mrcal_tpu_torch.parallel import (collective_bytes_per_iteration,
+                                          make_mesh)
+    phase = "mesh nccl1"
+    torch.cuda.set_device(0)
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        dist.init_process_group("nccl", init_method=f"file://{workdir}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1)
+            optimize(mesh=mesh, precision="f64", **SOLVE_KW, **_copy(oi_main))
+            stats_m, m = mesh_solve(torch, phase, oi_main, mesh, (84, 6, 15))
+            stats_u, u = mesh_solve(torch, phase, oi_main, None, None)
+            dE = abs(m["E"] - u["E"]) / u["E"]
+            log(f"[{phase}] E {m['E']!r} on the mesh, {u['E']!r} unsharded: "
+                f"{dE:.3e} relative; b_packed differ by "
+                f"{np.abs(stats_m['b_packed'] - stats_u['b_packed']).max():.3e}")
+            if not abs(m["rms"] - F64_RMS) <= F64_RMS_TOL:
+                fail(f"[{phase}] rms {m['rms']!r} is not within "
+                     f"{F64_RMS_TOL} of {F64_RMS}")
+            if not F64_NITER_RANGE[0] <= m["niterations"] <= \
+                    F64_NITER_RANGE[1]:
+                fail(f"[{phase}] {m['niterations']} iterations")
+            if not dE <= MESH_E_RTOL:
+                fail(f"[{phase}] E is {dE:.3e} relative from the unsharded "
+                     "solve's")
+            # ms per iteration in turns: unsharded, mesh, mesh, unsharded
+            walls = {"unsharded": [], "mesh": []}
+            for which in ("unsharded", "mesh", "mesh", "unsharded"):
+                walls[which].append(mesh_solve(
+                    torch, phase, oi_main,
+                    mesh if which == "mesh" else None,
+                    None)[1]["ms_per_iteration"])
+            spec = spec_from_inputs(**oi_main)
+            c = m["collectives"]
+            formula, _ = collective_bytes_per_iteration(spec)
+            out["opencv8_1cam"] = dict(
+                mesh=m, unsharded=u, E_rel_diff=dE,
+                ms_per_iteration_turns=walls,
+                all_reduce_per_evaluation=c["all_reduce"]
+                / c["normal_equations"],
+                bytes_per_evaluation=m["bytes_reduced"]
+                / c["normal_equations"],
+                collective_bytes_per_iteration=formula)
+            log(f"[{phase}] ms per iteration in turns: unsharded "
+                f"{walls['unsharded']}, mesh {walls['mesh']}; all-reduce "
+                f"calls per normal-equation evaluation "
+                f"{out['opencv8_1cam']['all_reduce_per_evaluation']:g}, "
+                f"{out['opencv8_1cam']['bytes_per_evaluation']:g} bytes "
+                f"each (collective_bytes_per_iteration: {formula})")
+            check_bytes(phase, "opencv8_1cam", out["opencv8_1cam"])
+
+            oi_mx = _copy(oi_main)
+            stats = optimize(mesh=mesh, precision="mixed", **SOLVE_KW,
+                             **oi_mx)
+            rms = stats["rms_reproj_error__pixels"]
+            log(f"[{phase}] mixed on the mesh: rms {rms!r} px in "
+                f"{stats['niterations']} iterations")
+            if not abs(rms - F64_RMS) <= MIXED_RMS_TOL:
+                fail(f"[{phase}] mixed rms {rms!r}")
+            out["opencv8_1cam"]["mixed_rms"] = rms
+
+            _, sp = mesh_solve(torch, phase, oi_splined, mesh,
+                               SPLINED_SHAPES[0])
+            if not abs(sp["rms"] - SPLINED_F64_RMS) <= SPLINED_F64_RMS_TOL:
+                fail(f"[{phase}] splined rms {sp['rms']!r}")
+            if not SPLINED_NITER_RANGE[0] <= sp["niterations"] <= \
+                    SPLINED_NITER_RANGE[1]:
+                fail(f"[{phase}] splined: {sp['niterations']} iterations")
+            c = sp["collectives"]
+            sp.update(bytes_per_evaluation=sp["bytes_reduced"]
+                      / c["normal_equations"],
+                      collective_bytes_per_iteration=
+                      collective_bytes_per_iteration(
+                          spec_from_inputs(**oi_splined))[0])
+            check_bytes(phase, "splined_30x18", sp)
+            out["splined_30x18"] = sp
+        finally:
+            dist.destroy_process_group()
+    return out, stats_u
+
+
+def _mesh_gloo2_rank(mesh, oi):
+    """A rank of the [mesh gloo2] phase: opencv8_1cam by optimize(mesh=2),
+    with the rank's kernel launches and collectives."""
+    sys.path.insert(0, ROOT)
+    import torch
+    from mrcal_tpu_torch import optimize
+    from mrcal_tpu_torch.ops import batched_cholesky as bc
+    optimize(mesh=mesh, precision="f64", **dict(SOLVE_KW, max_iterations=2),
+             **_copy(oi))
+    mesh.reset_counts()
+    bc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = optimize(mesh=mesh, precision="f64", **SOLVE_KW, **_copy(oi))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(rank=mesh.rank, device=str(mesh.device), b=stats["b_packed"],
+                E=_E(stats), rms=stats["rms_reproj_error__pixels"],
+                niterations=stats["niterations"], wall_s=wall,
+                launches=dict(bc.launches), collectives=dict(mesh.counts))
+
+
+def phase_mesh_gloo2(torch, oi_main, unsharded):
+    """Two ranks on the one card over gloo, against the unsharded solve;
+    then dryrun_multichip(2)."""
+    from mrcal_tpu_torch.parallel import dryrun_multichip, spawn
+    phase = "mesh gloo2"
+    t0 = time.perf_counter()
+    ranks = spawn(_mesh_gloo2_rank, 2, oi_main)
+    spawn_s = time.perf_counter() - t0
+    b_u = unsharded["b_packed"]
+    for r in ranks:
+        dE = abs(r["E"] - _E(unsharded)) / _E(unsharded)
+        db = float(np.abs(r["b"] - b_u).max())
+        r.update(E_rel_diff=dE, b_abs_diff=db,
+                 ms_per_iteration=r["wall_s"] / r["niterations"] * 1e3)
+        log(f"[{phase}] rank {r['rank']} on {r['device']}: rms {r['rms']!r} "
+            f"px in {r['niterations']} iterations, {r['wall_s']:.4f} s "
+            f"({r['ms_per_iteration']:.3f} ms/iteration); E {dE:.3e} "
+            f"relative and b {db:.3e} from the unsharded solve; launches "
+            f"{r['launches']}, collectives {r['collectives']}")
+        if not (dE <= MESH_E_RTOL and db <= MESH_B_ATOL):
+            fail(f"[{phase}] rank {r['rank']} differs from the unsharded "
+                 "solve")
+        check_launches_per_iteration(f"{phase} rank {r['rank']}",
+                                     r["launches"], r["niterations"])
+    if not np.array_equal(ranks[0]["b"], ranks[1]["b"]):
+        fail(f"[{phase}] the ranks' b differ")
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2)
+    log(f"[{phase}] dryrun_multichip(2) (gloo, two ranks sharing the "
+        f"card): {dry} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r in ranks:
+        r.pop("b")
+    return dict(ranks=ranks, spawn_s=spawn_s, dryrun=dry)
+
+
 def phase_profile(torch, phase, oi, wall_unprofiled):
     """Where the time of the f64 solve goes: one more solve under
     torch.profiler; device time by kernel, launches per iteration, the
@@ -1191,6 +1436,14 @@ def main():
                         ("splined_30x18", phase_splined)):
         others[name] = phase(torch)
         stamp(name)
+    # loopback only for the process groups' own sockets
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    mesh, unsharded = phase_mesh_nccl1(torch, oi_main,
+                                       others["splined_30x18"][0])
+    stamp("mesh nccl1")
+    mesh["gloo2"] = phase_mesh_gloo2(torch, oi_main, unsharded)
+    stamp("mesh gloo2")
     batches = {}
     for name, phase, wall in (
             ("fleet_64x_opencv8_1cam", phase_batch_fleet,
@@ -1233,11 +1486,18 @@ def main():
             **{name: summary["launches"][e["name"]]
                for name, (_, summary) in others.items()},
             **{name: summary["launches"][e["name"]]
-               for name, (_, summary) in batches.items()})
+               for name, (_, summary) in batches.items()},
+            mesh_nccl1_opencv8_1cam=mesh["opencv8_1cam"]["mesh"][
+                "launches"][e["name"]],
+            mesh_nccl1_splined_30x18=mesh["splined_30x18"]["launches"][
+                e["name"]],
+            mesh_gloo2_opencv8_1cam_rank0=mesh["gloo2"]["ranks"][0][
+                "launches"][e["name"]])
         e["device_us_per_launch_main_path"] = per_launch[e["name"]]
     log(f"[main] summary {json.dumps(main_path)}")
     for name, (_, summary) in list(others.items()) + list(batches.items()):
         log(f"[{name}] summary {json.dumps(summary)}")
+    log(f"[mesh] summary {json.dumps(mesh)}")
     log(f"[callback] summary {json.dumps(callbacks)}")
     log(f"[triangulate] summary {json.dumps(triangulate)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

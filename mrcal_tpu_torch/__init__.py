@@ -25,13 +25,13 @@ from .optimize import (  # noqa: F401
     optimize, optimize_batch, optimizer_callback,
     pad_problems_to_common_structure)
 from .poseutils import (  # noqa: F401
-    skew_symmetric,
+    R_from_r,
+    compose_r,
+    compose_rt,
     rotate_point_R,
-    _R_from_r as R_from_r,
-    _compose_r as compose_r,
-    _rotate_point_r as rotate_point_r,
-    _compose_rt2 as compose_rt,
-    _transform_point_rt as transform_point_rt,
+    rotate_point_r,
+    skew_symmetric,
+    transform_point_rt,
 )
 from .triangulation import (  # noqa: F401
     triangulate_geometric,

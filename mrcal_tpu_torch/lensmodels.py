@@ -60,8 +60,8 @@ PORTED_FAMILIES = ("LENSMODEL_PINHOLE", "LENSMODEL_STEREOGRAPHIC",
                    "LENSMODEL_SPLINED_STEREOGRAPHIC")
 
 _NOT_PORTED = {
-    "LENSMODEL_CAHVOR": "ROADMAP queue 1 item 3 (CAHVOR projection)",
-    "LENSMODEL_CAHVORE": "ROADMAP queue 1 item 3 (CAHVORE projection)",
+    "LENSMODEL_CAHVOR": "ROADMAP queue 1 (CAHVOR projection)",
+    "LENSMODEL_CAHVORE": "ROADMAP queue 1 (CAHVORE projection)",
 }
 
 

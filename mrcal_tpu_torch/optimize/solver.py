@@ -60,8 +60,7 @@ _LAM_FLOOR = 1e-11
 _F32_LAM_FLOOR = 4e-7
 
 _NOT_PORTED_OPTIONS = {
-    "mesh": "ROADMAP queue 1 item 11 (multi-GPU)",
-    "verbose": "ROADMAP queue 1 item 7 (verbose per-iteration output)",
+    "verbose": "ROADMAP queue 1 (verbose per-iteration output)",
 }
 
 
@@ -322,9 +321,14 @@ class _ObservationRows:
     arrays are shared, and the rows of all P problems go through one
     autograd pass (each row depends on its own copy of its blocks only,
     so the per-row Jacobians stay exact).  splined_board takes one
-    problem."""
+    problem.
 
-    def __init__(self, spec: ProblemSpec, arrays):
+    The observation counts are those of `arrays` (a shard of a problem
+    holds fewer than its spec says), and pairs = (i0, i1), host arrays,
+    gives the triangulated pairs as rows of arrays' triangulated
+    observations, in place of the spec's sets."""
+
+    def __init__(self, spec: ProblemSpec, arrays, pairs=None):
         dt = arrays["intrinsics"].dtype
         dev = arrays["intrinsics"].device
         self.spec = spec
@@ -335,14 +339,17 @@ class _ObservationRows:
                 self.splined_fn = _make_splined_corner_fn(spec, self.consts)
             self.HW = spec.calibration_object_height_n * \
                 spec.calibration_object_width_n
-            self.cxy = _corner_grid(spec, spec.Nobservations_board, dt, dev)
+            self.cxy = _corner_grid(spec, len(arrays["indices_board"]), dt,
+                                    dev)
         if spec.Nobservations_point:
             self.point_fn = _make_point_fn(spec, self.consts)
         if spec.num_measurements_points_triangulated:
             self.tri_fn = _make_tri_fn(self.consts)
-            self.i0, self.i1 = (
-                torch.as_tensor(a, device=dev) for a in
-                triangulated_pair_indices(spec.triangulated_set_sizes))
+            if pairs is None:
+                pairs = triangulated_pair_indices(
+                    spec.triangulated_set_sizes)
+            self.i0, self.i1 = (torch.as_tensor(a, device=dev)
+                                for a in pairs)
             ice = arrays["indices_triangulated"][:, 2]
             # the pairs' cameras, as rows of the padded extrinsics
             self.ie0, self.ie1 = ice[self.i0] + 1, ice[self.i1] + 1
@@ -572,13 +579,20 @@ def _reg_per_camera(intr_row, spec: ProblemSpec, consts, target):
 
 
 def build_normal_equations(spec: ProblemSpec, arrays, static_idx, *,
-                           h32=False):
+                           h32=False, regularization=True):
     """Returns a function f(b, arrays) -> dict(E, g_c, g_f, g_p, Hcc, Hff,
     Cf, Hpp, Cp, x_board, x_point, x_tri, x_reg) where b is the packed
     state; H/C are the block normal-equation pieces in packed coordinates.
     static_idx carries numpy copies of the index arrays (for the static
-    per-camera-pair grouping).  The constants live on the device and in the
-    dtype of `arrays`.
+    per-camera-pair grouping), and optionally the triangulated pairs
+    ("pairs", see _ObservationRows).  The constants live on the device and
+    in the dtype of `arrays`.
+
+    regularization=False leaves the regularization out (x_reg empty): a
+    shard of the observations assembles its blocks without it, and
+    f.add_regularization(b, arrays, ne) adds it once to the reduced
+    blocks, in place on g_c and Hcc, and returns ne with E and x_reg
+    updated.
 
     b (Nstate,) is one problem.  b (P, Nstate) is a batch of P problems of
     one structure: every float array of `arrays` then leads with P (the
@@ -590,22 +604,32 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx, *,
     a gradient-only mode, and it alone takes h32."""
     require_ported(spec.lensmodel)
     if _splined_fast_path_ok(spec):
-        return build_normal_equations_splined(spec, arrays, static_idx,
-                                              h32=h32)
+        return build_normal_equations_splined(
+            spec, arrays, static_idx, h32=h32, regularization=regularization)
     if h32:
         raise ValueError("h32: only the splined window assembly assembles "
                          "H in float32")
-    f = _build_normal_equations_batch(spec, arrays, static_idx)
+    f = _build_normal_equations_batch(spec, arrays, static_idx,
+                                      regularization=regularization)
 
     def one_or_batch(b, arrays):
         if b.dim() == 2:
             return f(b, arrays)
         return {k: v[0] for k, v in f(b[None], _batch_of_one(arrays)).items()}
 
+    def add_regularization(b, arrays, ne):
+        if b.dim() == 2:
+            return f.add_regularization(b, arrays, ne)
+        one = {k: ne[k][None] for k in ("E", "g_c", "Hcc")}
+        out = f.add_regularization(b[None], _batch_of_one(arrays), one)
+        return dict(ne, E=out["E"][0], x_reg=out["x_reg"][0])
+
+    one_or_batch.add_regularization = add_regularization
     return one_or_batch
 
 
-def _build_normal_equations_batch(spec: ProblemSpec, arrays, static_idx):
+def _build_normal_equations_batch(spec: ProblemSpec, arrays, static_idx,
+                                  regularization=True):
     """build_normal_equations for a batch: f(b (P, Nstate), arrays) -> the
     dict with a leading P on every leaf.  The problems' rows go through
     one autograd pass; every sum is per problem, with P in the tensor."""
@@ -615,7 +639,7 @@ def _build_normal_equations_batch(spec: ProblemSpec, arrays, static_idx):
     Npv = spec.Npoints_variable
     dt = arrays["intrinsics"].dtype
     dev = arrays["intrinsics"].device
-    rows_of = _ObservationRows(spec, arrays)
+    rows_of = _ObservationRows(spec, arrays, static_idx.get("pairs"))
     consts = rows_of.consts
 
     idxb_np = np.asarray(static_idx["board"]).reshape(-1, 3)
@@ -636,7 +660,8 @@ def _build_normal_equations_batch(spec: ProblemSpec, arrays, static_idx):
         ext_valid_p = (idxp[:, 2] >= 0).to(dt)[:, None, None]
         point_var = (idxp[:, 0] < Npv).to(dt)[:, None, None]
         ipt_c = torch.clamp(idxp[:, 0], 0, max(Npv - 1, 0))
-    Ntri = spec.num_measurements_points_triangulated
+    Ntri = (len(rows_of.i0) if spec.num_measurements_points_triangulated
+            else 0)
     if Ntri:
         # triangulated points are not state: each pair's row touches only
         # its two cameras' extrinsics, in the Hcc/g_c blocks
@@ -792,45 +817,59 @@ def _build_normal_equations_batch(spec: ProblemSpec, arrays, static_idx):
                 g_c[:, cl.e0:cl.w0] += torch.einsum("ptk,pt->pk", Jrow,
                                                     x_tri)
 
-        # ---------------- regularization ----------------
         x_reg = zeros((P, 0))
-        if spec.num_measurements_regularization:
-            # per-camera reg rows depend on that camera's intrinsics state;
-            # plus optionally one unity_cam01 row on extrinsics 0
-            rreg, Jreg = rows_of.regularization(pk)
-            E = E + torch.sum(rreg * rreg, dim=(1, 2))
-            if Jreg is not None:
-                for ci in range(spec.Ncameras_intrinsics):
-                    i0 = cl.coli(ci)
-                    g_c[:, i0:i0 + Nip] += torch.einsum(
-                        "pki,pk->pi", Jreg[:, ci], rreg[:, ci])
-                    Hcc[:, i0:i0 + Nip, i0:i0 + Nip] += torch.einsum(
-                        "pki,pkj->pij", Jreg[:, ci], Jreg[:, ci])
-            # the reference emits ALL distortion terms for all cameras,
-            # then ALL centerpixel terms
-            ndist_terms = (spec.Ndistortions
-                           if (s.do_apply_regularization
-                               and s.do_optimize_intrinsics_distortions)
-                           else 0)
-            x_reg = torch.cat([rreg[..., :ndist_terms].reshape(P, -1),
-                               rreg[..., ndist_terms:].reshape(P, -1)],
-                              dim=1)
-
-            if (s.do_apply_regularization_unity_cam01
-                    and s.do_optimize_extrinsics
-                    and spec.Ncameras_extrinsics > 0):
-                ru, Ju = rows_of.unity_cam01(pk)
-                E = E + ru * ru
-                e0 = cl.cole(0)
-                g_c[:, e0:e0 + 6] += Ju * ru[:, None]
-                Hcc[:, e0:e0 + 6, e0:e0 + 6] += Ju[:, :, None] * Ju[:, None]
-                x_reg = torch.cat([x_reg, ru[:, None]], dim=1)
-
+        if regularization:
+            E, x_reg = add_reg(pk, E, g_c, Hcc)
         return dict(E=E, g_c=g_c, g_f=g_f, g_p=g_p, Hcc=Hcc, Hff=Hff,
                     Cf=Cf, Hpp=Hpp, Cp=Cp,
                     x_board=x_board, x_point=x_point, x_tri=x_tri,
                     x_reg=x_reg)
 
+    def add_reg(pk, E, g_c, Hcc):
+        """The regularization rows added to E, and in place to g_c and Hcc
+        (each with the leading P) -> (E, x_reg)."""
+        P, Nip = E.shape[0], cl.Nip
+        x_reg = E.new_zeros((P, 0))
+        if not spec.num_measurements_regularization:
+            return E, x_reg
+        # per-camera reg rows depend on that camera's intrinsics state;
+        # plus optionally one unity_cam01 row on extrinsics 0
+        rreg, Jreg = rows_of.regularization(pk)
+        E = E + torch.sum(rreg * rreg, dim=(1, 2))
+        if Jreg is not None:
+            for ci in range(spec.Ncameras_intrinsics):
+                i0 = cl.coli(ci)
+                g_c[:, i0:i0 + Nip] += torch.einsum(
+                    "pki,pk->pi", Jreg[:, ci], rreg[:, ci])
+                Hcc[:, i0:i0 + Nip, i0:i0 + Nip] += torch.einsum(
+                    "pki,pkj->pij", Jreg[:, ci], Jreg[:, ci])
+        # the reference emits ALL distortion terms for all cameras,
+        # then ALL centerpixel terms
+        ndist_terms = (spec.Ndistortions
+                       if (s.do_apply_regularization
+                           and s.do_optimize_intrinsics_distortions)
+                       else 0)
+        x_reg = torch.cat([rreg[..., :ndist_terms].reshape(P, -1),
+                           rreg[..., ndist_terms:].reshape(P, -1)], dim=1)
+
+        if (s.do_apply_regularization_unity_cam01
+                and s.do_optimize_extrinsics
+                and spec.Ncameras_extrinsics > 0):
+            ru, Ju = rows_of.unity_cam01(pk)
+            E = E + ru * ru
+            e0 = cl.cole(0)
+            g_c[:, e0:e0 + 6] += Ju * ru[:, None]
+            Hcc[:, e0:e0 + 6, e0:e0 + 6] += Ju[:, :, None] * Ju[:, None]
+            x_reg = torch.cat([x_reg, ru[:, None]], dim=1)
+        return E, x_reg
+
+    def add_regularization(b, arrays, ne):
+        params = split_packed_state(b, arrays, spec, scales=consts.state)
+        E, x_reg = add_reg(rows_of.packed(params), ne["E"], ne["g_c"],
+                           ne["Hcc"])
+        return dict(ne, E=E, x_reg=x_reg)
+
+    f.add_regularization = add_regularization
     return f
 
 
@@ -857,7 +896,7 @@ def _one_hot(ids, n, dtype):
 
 
 def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
-                                   *, h32=False):
+                                   *, h32=False, regularization=True):
     """Normal equations of a splined model with the core locked, boards
     only.  Each corner's two rows depend on its pose blocks (autograd,
     two cotangents) and on the 2(order+1)^2 control points of its spline
@@ -873,7 +912,9 @@ def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
     hessian=False gives E, the gradient and the residuals only, and skips
     the rows and their products (the lazy-Hessian mode).  h32: the rows
     and the H and C blocks in float32, the gradient in the state's dtype
-    (the float64-gradient, float32-H scheme)."""
+    (the float64-gradient, float32-H scheme).  regularization and
+    f.add_regularization(b, arrays, ne, hessian=True) as
+    build_normal_equations has them."""
     s = spec.selections
     cl = _CLayout(spec)
     lm = spec.lensmodel
@@ -978,9 +1019,17 @@ def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
                        Hpp=r.new_zeros((max(Npv, 1), 3, 3), dtype=hdt),
                        Cp=r.new_zeros((max(Npv, 1), 3, cl.Nc), dtype=hdt))
 
-        # ---- regularization: linear in the control points, so its
-        # Jacobian is taken once
         x_reg = r.new_zeros((0,))
+        if regularization:
+            E, x_reg = add_reg(pk, E, g_c, out.get("Hcc"))
+        out.update(E=E, x_reg=x_reg)
+        return out
+
+    def add_reg(pk, E, g_c, Hcc):
+        """The regularization rows added to E, and in place to g_c and
+        (unless None) Hcc -> (E, x_reg)."""
+        # linear in the control points, so its Jacobian is taken once
+        x_reg = E.new_zeros((0,))
         if s.do_apply_regularization:
             rreg = splined_regularization(
                 pk["intr_full"][:, 4:].reshape(Nci, lm.Ny, lm.Nx, 2),
@@ -993,10 +1042,10 @@ def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
             E = E + torch.sum(rreg * rreg)
             g_c[:cl.e0] += torch.einsum("cki,ck->ci", reg_cache["J"],
                                         rreg).reshape(-1)
-            if hessian:
+            if Hcc is not None:
                 for ci in range(Nci):
                     i0 = cl.coli(ci)
-                    out["Hcc"][i0:i0 + cl.Nip, i0:i0 + cl.Nip] += \
+                    Hcc[i0:i0 + cl.Nip, i0:i0 + cl.Nip] += \
                         reg_cache["JtJ"][ci]
             x_reg = rreg.reshape(-1)
         if (s.do_apply_regularization_unity_cam01
@@ -1005,14 +1054,19 @@ def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
             E = E + ru * ru
             e0 = cl.cole(0)
             g_c[e0:e0 + 6] += Ju * ru
-            if hessian:
-                out["Hcc"][e0:e0 + 6, e0:e0 + 6] += \
-                    torch.outer(Ju, Ju).to(hdt)
+            if Hcc is not None:
+                Hcc[e0:e0 + 6, e0:e0 + 6] += torch.outer(Ju, Ju).to(hdt)
             x_reg = torch.cat([x_reg, ru[None]])
-        out.update(E=E, x_reg=x_reg)
-        return out
+        return E, x_reg
+
+    def add_regularization(b, arrays, ne, hessian=True):
+        params = split_packed_state(b, arrays, spec, scales=consts.state)
+        E, x_reg = add_reg(rows_of.packed(params), ne["E"], ne["g_c"],
+                           ne["Hcc"] if hessian else None)
+        return dict(ne, E=E, x_reg=x_reg)
 
     f.gradient = lambda b, arrays: f(b, arrays, hessian=False)
+    f.add_regularization = add_regularization
     return f
 
 
@@ -1317,8 +1371,8 @@ def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
              max_iterations=300, update_threshold=1e-7, dtype=None,
              quiet=False, lam0=1e-4, ftol=None, lazy_K=None, h32=False):
     """Levenberg-Marquardt to convergence: the rules of _lm_update as one
-    Python loop over tensors on the device of `arrays`.  Each iteration
-    reads one scalar (accept and done).
+    Python loop over tensors on the device of `arrays` (_lm_loop).  Each
+    iteration reads one scalar (accept and done).
 
     lazy_K > 0 is the lazy-Hessian mode: the H and C blocks refresh only
     on the (K+1)-th accepted step after the last refresh, while E, the
@@ -1332,16 +1386,29 @@ def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
     if dtype is not None:
         arrays = _cast_arrays(arrays, dtype)
         b0 = b0.to(dtype)
-    eff_threshold, ftol, benchmark = _lm_settings(update_threshold,
-                                                  b0.dtype, quiet, ftol)
     if lazy_K is None:
         lazy_K = _lazy_h_K(spec, b0.dtype, b0.device)
     ne_fn = build_normal_equations(spec, arrays, static_idx, h32=h32)
     grad_fn = getattr(ne_fn, "gradient", None) or _make_grad_fn(spec)
+    return _lm_loop(spec, lambda b: ne_fn(b, arrays),
+                    lambda b: grad_fn(b, arrays), b0,
+                    max_iterations=max_iterations,
+                    update_threshold=update_threshold, quiet=quiet,
+                    lam0=lam0, ftol=ftol, lazy_K=lazy_K)
 
+
+def _lm_loop(spec: ProblemSpec, ne_fn, grad_fn, b0, *, max_iterations,
+             update_threshold, quiet, lam0, ftol, lazy_K):
+    """The LM loop of one problem around ne_fn(b) -> the normal equations
+    and grad_fn(b) -> their _LAZY_H_GRAD_KEYS (the lazy-Hessian mode's
+    evaluation on steps that keep H), both at the packed state b.  The
+    single-device solve and the sharded one (whose functions reduce over
+    the mesh) both run it.  Returns (b, E, niter, ne) as lm_solve."""
+    eff_threshold, ftol, benchmark = _lm_settings(update_threshold,
+                                                  b0.dtype, quiet, ftol)
     with torch.no_grad():
         b = b0
-        ne = ne_fn(b, arrays)
+        ne = ne_fn(b)
         lam = torch.full((), lam0, dtype=b.dtype, device=b.device)
         nu = torch.full((), 2.0, dtype=b.dtype, device=b.device)
         E_ref, it_ref = ne["E"], 0
@@ -1354,10 +1421,10 @@ def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
             b_try = b + db
             refresh = age >= lazy_K
             if refresh:
-                ne_try = ne_fn(b_try, arrays)
+                ne_try = ne_fn(b_try)
             else:
                 ne_try = dict(ne)                  # the stale H blocks
-                new = grad_fn(b_try, arrays)
+                new = grad_fn(b_try)
                 ne_try.update({k: new[k] for k in _LAZY_H_GRAD_KEYS})
             window = it + 1 - it_ref >= 16
             accept, done, lam, nu, E_ref = _lm_update(
@@ -1742,12 +1809,30 @@ def optimize(*, device=None, **kw):
     'f32', or 'mixed' (f32 phase to approximate convergence, then an f64
     polish).
 
+    mesh: a mrcal_tpu_torch.parallel mesh, an int or "auto" (make_mesh of
+    the torch.distributed default group, on `device`: None means each
+    rank's card) shards the observations over the group's ranks
+    (sharded_lm_solve_device); every rank calls optimize() with the same
+    inputs and gets the same solution and stats (time_s is its own).
+
     Mutates the input numpy arrays (intrinsics, extrinsics_rt_fromref,
     frames_rt_toref, points, calobject_warp, and observation weights for
     outlier marking) like the reference does, and returns a stats dict.
     check_gradient=True compares the Jacobian with central differences
     instead, and returns that report without solving."""
     _check_options(kw)
+    mesh = kw.pop("mesh", None)
+    lm = lm_solve
+    if mesh is not None:
+        from ..parallel.sharding import (Mesh, make_mesh,
+                                         sharded_lm_solve_device)
+        if not isinstance(mesh, Mesh):
+            mesh = make_mesh(mesh, device=device)
+        device = mesh.device
+
+        def lm(spec, arrays, b, static_idx, **solve_kw):
+            return sharded_lm_solve_device(spec, arrays, b, mesh,
+                                           **solve_kw)
     device = resolve_device(device)
     timer = _SolveTimer()
     kw = _layout.normalize_inputs(kw)
@@ -1769,7 +1854,7 @@ def optimize(*, device=None, **kw):
         return _check_gradient_report(spec, arrays, b)
 
     precision = _precision(kw)
-    solve = _solver(lm_solve, spec, arrays, static_idx, kw)
+    solve = _solver(lm, spec, arrays, static_idx, kw)
     total_niter = 0
     niter_polish = 0
     Noutliers = 0
@@ -1814,8 +1899,8 @@ def optimize(*, device=None, **kw):
 
 _SPLINED_BATCH_NOT_PORTED = (
     "optimize_batch of a splined model with its core locked (the "
-    "spline-window assembly) is not ported yet: ROADMAP queue 1 item 14 "
-    "(the batched spline-window assembly)")
+    "spline-window assembly) is not ported yet: ROADMAP queue 1 (the "
+    "batched spline-window assembly)")
 
 
 def _stack_arrays(arrays_list):

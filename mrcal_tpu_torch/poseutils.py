@@ -108,6 +108,12 @@ def _compose_rt2(rt0, rt1):
     return torch.cat([r01, t01], dim=-1)
 
 
+def _invert_rt(rt):
+    r = rt[..., :3]
+    tinv = -_rotate_point_r(r, rt[..., 3:], inverted=True)
+    return torch.cat([-r, tinv], dim=-1)
+
+
 def _transform_point_rt(rt, x, inverted=False):
     if inverted:
         return _rotate_point_r(rt[..., :3], x - rt[..., 3:], inverted=True)
@@ -132,10 +138,17 @@ def _as_tensors(device, *arrays):
     as ``resolve_device``), all of the first one's dtype if it is floating
     and float64 otherwise; a None passes through."""
     device = resolve_device(device)
-    first = torch.as_tensor(arrays[0], device=device)
+
+    def tensor(a, **kw):
+        if not torch.is_tensor(a):
+            a = np.asarray(a)
+            if any(st < 0 for st in a.strides):    # torch takes none
+                a = a.copy()
+        return torch.as_tensor(a, device=device, **kw)
+
+    first = tensor(arrays[0])
     dtype = first.dtype if first.is_floating_point() else DEFAULT_DTYPE
-    return tuple(None if a is None
-                 else torch.as_tensor(a, dtype=dtype, device=device)
+    return tuple(None if a is None else tensor(a, dtype=dtype)
                  for a in arrays)
 
 
@@ -173,3 +186,109 @@ def rotate_point_R(R, x, *, get_gradients=False, out=None, inverted=False,
         return _rotate_point_R(R_, x_, inverted)
     return _finish((u, _vjac(f, (R, x), (2, 1), 0),
                     _vjac(f, (R, x), (2, 1), 1)), out)
+
+
+def R_from_r(r, *, get_gradients=False, out=None, device=None):
+    """Rodrigues vector(s) -> rotation matrices.  (...,3) -> (...,3,3).
+    Runs on the card unless device says otherwise.
+
+    get_gradients: also returns dR/dr (...,3,3,3)."""
+    (r,) = _as_tensors(device, r)
+    R = _R_from_r(r)
+    if not get_gradients:
+        return _finish(R, out)
+    return _finish((R, _vjac(_R_from_r, (r,), (1,), 0)), out)
+
+
+def _two_only(n, what, **flags):
+    if any(flags.values()) and n != 2:
+        raise ValueError(f"inverted/get_gradients require exactly 2 {what}")
+
+
+def compose_r(*r, get_gradients=False, out=None, inverted0=False,
+              inverted1=False, device=None):
+    """Compose Rodrigues rotations left to right.  Each (...,3).  Runs on
+    the card unless device says otherwise.
+
+    get_gradients (2 rotations only): returns (r01, dr01/dr0, dr01/dr1),
+    the gradients (...,3,3).  inverted0/inverted1 (2 rotations only)
+    invert the first/second rotation before composing."""
+    _two_only(len(r), "rotations", get_gradients=get_gradients,
+              inverted0=inverted0, inverted1=inverted1)
+    rs = list(_as_tensors(device, *r))
+    if inverted0:
+        rs[0] = -rs[0]
+    if inverted1:
+        rs[1] = -rs[1]
+    acc = rs[0]
+    for nxt in rs[1:]:
+        acc = _compose_r(acc, nxt)
+    if not get_gradients:
+        return _finish(acc, out)
+    dr0 = _vjac(_compose_r, rs, (1, 1), 0)
+    dr1 = _vjac(_compose_r, rs, (1, 1), 1)
+    return _finish((acc, -dr0 if inverted0 else dr0,
+                    -dr1 if inverted1 else dr1), out)
+
+
+def compose_rt(*rt, get_gradients=False, out=None, inverted0=False,
+               inverted1=False, device=None):
+    """Compose rt transformations left to right.  Each (...,6).  Runs on
+    the card unless device says otherwise.
+
+    get_gradients (2 transforms only): returns (rt01, drt01/drt0,
+    drt01/drt1), the gradients (...,6,6), with respect to the arguments
+    as given (inverted or not).  inverted0/inverted1 (2 transforms only)
+    invert the first/second transform before composing."""
+    _two_only(len(rt), "transforms", get_gradients=get_gradients,
+              inverted0=inverted0, inverted1=inverted1)
+    given = _as_tensors(device, *rt)
+    rts = list(given)
+    if inverted0:
+        rts[0] = _invert_rt(rts[0])
+    if inverted1:
+        rts[1] = _invert_rt(rts[1])
+    acc = rts[0]
+    for nxt in rts[1:]:
+        acc = _compose_rt2(acc, nxt)
+    if not get_gradients:
+        return _finish(acc, out)
+    d = [_vjac(_compose_rt2, rts, (1, 1), i) for i in (0, 1)]
+    for i, inverted in enumerate((inverted0, inverted1)):
+        if inverted:
+            d[i] = d[i] @ _vjac(_invert_rt, (given[i],), (1,), 0)
+    return _finish((acc, d[0], d[1]), out)
+
+
+def rotate_point_r(r, x, *, get_gradients=False, out=None, inverted=False,
+                   device=None):
+    """u = R(r) x (or R(r)^T x if inverted).  r, x: (...,3).  Runs on the
+    card unless device says otherwise.
+
+    get_gradients: returns (u, du/dr (...,3,3), du/dx (...,3,3))."""
+    r, x = _as_tensors(device, r, x)
+    u = _rotate_point_r(r, x, inverted)
+    if not get_gradients:
+        return _finish(u, out)
+
+    def f(r_, x_):
+        return _rotate_point_r(r_, x_, inverted)
+    return _finish((u, _vjac(f, (r, x), (1, 1), 0),
+                    _vjac(f, (r, x), (1, 1), 1)), out)
+
+
+def transform_point_rt(rt, x, *, get_gradients=False, out=None,
+                       inverted=False, device=None):
+    """u = R(rt[:3]) x + rt[3:] (the inverse transform if inverted).  rt:
+    (...,6), x: (...,3).  Runs on the card unless device says otherwise.
+
+    get_gradients: returns (u, du/drt (...,3,6), du/dx (...,3,3))."""
+    rt, x = _as_tensors(device, rt, x)
+    u = _transform_point_rt(rt, x, inverted)
+    if not get_gradients:
+        return _finish(u, out)
+
+    def f(rt_, x_):
+        return _transform_point_rt(rt_, x_, inverted)
+    return _finish((u, _vjac(f, (rt, x), (1, 1), 0),
+                    _vjac(f, (rt, x), (1, 1), 1)), out)

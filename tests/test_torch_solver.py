@@ -213,7 +213,6 @@ def test_optimize_without_device_needs_a_card(problems):
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=2),
     dict(lensmodel="LENSMODEL_CAHVORE_linearity=0.00"),
     dict(verbose=True),
     dict(lensmodel="LENSMODEL_CAHVOR")])

@@ -114,7 +114,7 @@ def _rays():
     N = 32
     p = rng.normal(size=(N, 3)) * [2.0, 1.0, 1.0] + [0.0, 0.0, 8.0]
     t01 = np.array([1.0, 0.1, -0.2])
-    R01 = R_from_r(T([0.02, -0.1, 0.03])).numpy()
+    R01 = R_from_r([0.02, -0.1, 0.03], device="cpu").numpy()
     v0 = p + rng.normal(size=(N, 3)) * 0.01
     v1 = p - t01 + rng.normal(size=(N, 3)) * 0.01
     v1[0] = -v1[0]                 # diverging rays
@@ -226,7 +226,7 @@ def test_angle_error_small_accuracy(th):
     1e-4 rad of a converged sfm_triangulated solve."""
     rng = np.random.default_rng(5)
     N = 64
-    R = R_from_r(T(rng.normal(size=(N, 3)))).numpy()
+    R = R_from_r(rng.normal(size=(N, 3)), device="cpu").numpy()
     ray1 = np.stack([np.full(N, np.sin(th)), np.zeros(N),
                      np.full(N, np.cos(th))], axis=-1)
     v0 = R[:, :, 2] * rng.uniform(0.5, 20, (N, 1))
