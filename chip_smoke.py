@@ -63,6 +63,18 @@ nonzero:
    three-way, with gradients and inverted0/inverted1) and unproject_core
    (PINHOLE, OPENCV8) on the card, the wrappers' default device, against
    the CPU, to 1e-12.
+   uncertainty: converged f64 solves of opencv8_1cam (Nstate 518),
+   opencv8_4cam and splined_30x18 (Nstate 1586) become cameramodels;
+   projection_uncertainty on the 30 x 22 grid of
+   mrcal-show-projection-uncertainty (unit vectors, at 1 m and at
+   infinity): every method, covariance and worstdirection-stdev, on
+   opencv8_1cam; mean-pcam and ccp on opencv8_4cam's camera 2 and on
+   splined_30x18.  Then opencv8_1cam on its odd-numbered 42 frames (the
+   fused kernel at (42, 6, 15)), and projection_diff with uncertainties
+   between the two models at infinity and at 1 m.  Each call is held to
+   the same call on the CPU (UNC_* and DIFF_* tolerances) and prints its
+   warm wall time on the card, split into J, factor, F's Jacobian and
+   propagation, beside the CPU's.
 6. mesh: the multi-device path (mrcal_tpu_torch.parallel), the
    observations sharded over a torch.distributed group.
    nccl1: a one-rank NCCL group (a file store in a temporary directory,
@@ -218,6 +230,24 @@ SFM_BATCH_NITER_RANGE = (SFM_NITER_RANGE[0], 15)
 # 7.1e-11 relative apart (PERF.md)
 MESH_E_RTOL = 1e-10
 MESH_B_ATOL = SOLVE_KW["update_threshold"]
+# the uncertainty phase: the grid of mrcal-show-projection-uncertainty
+# (30 wide; 30 x 22 on the 800 x 600 imager), and the card against the
+# CPU: covariances to this much of their largest entry, stdev grids
+# relative, projection_diff's difflen (px) and Rt10.  The bench problems
+# hold corners seen at steep angles whose rows dominate J and are
+# evaluated with cancellation: the card's and the CPU's J differ by up
+# to 2e-11 relative per entry (1.6e-14 of the largest), which moves the
+# covariances by 3e-9-8e-9 (opencv8_1cam), 1e-9 (opencv8_4cam) and
+# 2.5e-8-7.4e-8 (splined_30x18) of their largest entry; a 1-ulp random
+# perturbation of J moves opencv8_1cam's by as much, 2.6e-9
+# (uncertainty_conditioning; PERF.md)
+UNC_GRID = 30
+UNC_COV_TOL = 1e-7
+UNC_STDEV_RTOL = 1e-7
+DIFF_DIFFLEN_TOL = 1e-8
+DIFF_RT10_TOL = 1e-9
+UNC_METHODS = ("mean-pcam", "cross-reprojection-rrp-Jfp",
+               "cross-reprojection-ccp")
 
 
 def fail(msg):
@@ -374,6 +404,8 @@ MAIN_SHAPES = [(84, 6, 15), (84, 6, 1)]
 CAM4_SHAPES = [(84, 6, 69)]                  # K = 4*12 + 3*6 + 2 + 1
 RIG16_SHAPES = [(40, 6, 285), (40, 6, 1)]
 SPLINED_SHAPES = [(84, 6, 1083)]             # K = 2*30*18 + 2 + 1
+# the uncertainty phase's solve of opencv8_1cam's odd-numbered frames
+ODD_SHAPES = [(42, 6, 15), (42, 6, 1)]
 # the batched Schur step: every problem's frame blocks in one launch
 FLEET_SHAPES = [(FLEET_P * 84, 6, 15), (FLEET_P * 84, 6, 1)]
 RIG16_BATCH_SHAPES = [(RIG16_BATCH_P * 40, 6, 285),
@@ -381,7 +413,7 @@ RIG16_BATCH_SHAPES = [(RIG16_BATCH_P * 40, 6, 285),
 LARGE_SHAPES = [(1 << 20, 3, 4), (1 << 18, 6, 15), (1 << 20, 3, 1),
                 (1 << 18, 6, 1)]
 CHECK_SHAPES = (MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES + SPLINED_SHAPES
-                + FLEET_SHAPES + RIG16_BATCH_SHAPES
+                + ODD_SHAPES + FLEET_SHAPES + RIG16_BATCH_SHAPES
                 + [(131, 6, 33), (131, 3, 4), (0, 6, 15), (70000, 6, 0)]
                 + LARGE_SHAPES)
 
@@ -464,11 +496,12 @@ def time_kernels(torch, card):
 
     shapes = dict(
         cholesky_factor_solve=(MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
-                               + SPLINED_SHAPES + FLEET_SHAPES
-                               + RIG16_BATCH_SHAPES + LARGE_SHAPES),
+                               + SPLINED_SHAPES + ODD_SHAPES[:1]
+                               + FLEET_SHAPES + RIG16_BATCH_SHAPES
+                               + LARGE_SHAPES),
         cholesky_solve_factored=(MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
-                                 + FLEET_SHAPES + RIG16_BATCH_SHAPES
-                                 + LARGE_SHAPES),
+                                 + ODD_SHAPES[1:] + FLEET_SHAPES
+                                 + RIG16_BATCH_SHAPES + LARGE_SHAPES),
         cholesky_factor=[(84, 6, 0), (1 << 20, 3, 0), (1 << 18, 6, 0)])
     results = {name: [] for name in shapes}
     for name, todo in shapes.items():
@@ -1354,6 +1387,227 @@ def phase_mesh_gloo2(torch, oi_main, unsharded):
     return dict(ranks=ranks, spawn_s=spawn_s, dryrun=dry)
 
 
+def _solved(oi):
+    """A converged f64 solve of oi on the card (the inputs, copied, with
+    the solution written back)."""
+    from mrcal_tpu_torch import optimize
+    oi = _copy(oi)
+    optimize(precision="f64", **SOLVE_KW, **oi)
+    return oi
+
+
+def odd_frames(oi):
+    """opencv8_1cam on its odd-numbered frames (one camera: one
+    observation per frame)."""
+    oi = _copy(oi)
+    idx = oi["indices_frame_camintrinsics_camextrinsics"]
+    keep = idx[:, 0] % 2 == 1
+    idx = idx[keep].copy()
+    idx[:, 0] //= 2
+    oi["indices_frame_camintrinsics_camextrinsics"] = idx
+    oi["observations_board"] = oi["observations_board"][keep]
+    oi["frames_rt_toref"] = oi["frames_rt_toref"][1::2]
+    return oi
+
+
+def _sync_time(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def uncertainty_split(torch, model, p, method, atinfinity):
+    """One projection_uncertainty call on the card in its stages: J (the
+    problem's upload, its Jacobian's triplets and the dense J), the
+    factor (JtJ's Cholesky factor, from the QR of J), F's Jacobian (with
+    Kpacked for the cross-reprojection methods) and the propagation
+    (sigma, the solve, Jobs A and the 2x2 products), seconds each."""
+    from mrcal_tpu_torch import model_analysis as ma
+    out = {}
+    prob, out["J_s"] = _sync_time(torch, lambda: ma._Solved(
+        model.optimization_inputs(), p.device))
+    _, dt = _sync_time(torch, lambda: prob.J)
+    out["J_s"] += dt
+    _, out["factor_s"] = _sync_time(torch, lambda: prob.factorization)
+    dq, out["F_jacobian_s"] = _sync_time(torch, lambda: ma._dq_db(
+        prob, p.reshape(-1, 3), model.icam_intrinsics() or 0, method,
+        atinfinity))
+    _, out["propagate_s"] = _sync_time(torch, lambda: ma._propagate(
+        prob, dq, ma._observed_pixel_uncertainty(prob)))
+    return out
+
+
+def uncertainty_conditioning(torch, phase, model, p):
+    """Why the card and the CPU agree only to ~1e-8 on the bench
+    problems: JtJ's computed eigenvalues and whether its Cholesky exists;
+    mean-pcam at 1 m taken apart stage by stage on the card and the CPU
+    (J relative to its largest entry and per entry, the factor L, dF/db,
+    Var); and Var's move under a 1-ulp random perturbation of J."""
+    from mrcal_tpu_torch import model_analysis as ma
+    stages = {}
+    for where, dev in (("card", p.device), ("cpu", torch.device("cpu"))):
+        prob = ma._Solved(model.optimization_inputs(), dev)
+        dq = ma._dq_db(prob, p.reshape(-1, 3).to(dev), 0, "mean-pcam", False)
+        stages[where] = dict(
+            J=prob.J, L=prob.factorization._L, dq=dq,
+            Var=ma._propagate(prob, dq, ma._observed_pixel_uncertainty(prob)))
+        if where == "card":
+            JtJ = prob.J.T @ prob.J
+            eig = torch.linalg.eigvalsh(JtJ)
+            chol_info = int(torch.linalg.cholesky_ex(JtJ)[1])
+            g = torch.Generator(device=dev).manual_seed(0)
+            J = prob.J
+            prob.J = J * (1 + 2.0 ** -52 * (2 * torch.rand(
+                J.shape, generator=g, dtype=J.dtype, device=dev) - 1))
+            prob.__dict__.pop("factorization")
+            Var_ulp = ma._propagate(prob, dq,
+                                    ma._observed_pixel_uncertainty(prob))
+    card = {k: v.cpu() for k, v in stages["card"].items()}
+    cpu = stages["cpu"]
+
+    def rel(k):
+        return float((card[k] - cpu[k]).abs().max() / cpu[k].abs().max())
+    out = dict(
+        JtJ_eig_min=float(eig[0]), JtJ_eig_max=float(eig[-1]),
+        JtJ_cholesky_info=chol_info, J=rel("J"),
+        J_per_entry=float(((card["J"] - cpu["J"]).abs()
+                           / cpu["J"].abs().clamp_min(1e-300)).max()),
+        L=rel("L"), dF_db=rel("dq"), Var=rel("Var"),
+        Var_ulp=float((Var_ulp.cpu() - card["Var"]).abs().max()
+                      / card["Var"].abs().max()))
+    log(f"[{phase}] conditioning: JtJ's eigenvalues {out['JtJ_eig_min']:.3e}"
+        f" .. {out['JtJ_eig_max']:.3e}, its Cholesky info "
+        f"{chol_info}; mean-pcam at 1 m, card vs CPU: J {out['J']:.2e} of "
+        f"its largest entry, {out['J_per_entry']:.2e} per entry; L "
+        f"{out['L']:.2e}; dF/db {out['dF_db']:.2e}; Var {out['Var']:.2e}; "
+        f"Var under a 1-ulp random perturbation of J {out['Var_ulp']:.2e}")
+    return out
+
+
+def uncertainty_call(torch, phase, model, p, nstate, method, atinfinity,
+                     what):
+    """projection_uncertainty on the card (a warm-up call, then a timed
+    one, then its stages timed apart) against the same call on the CPU."""
+    from mrcal_tpu_torch import projection_uncertainty
+    kw = dict(method=method, atinfinity=atinfinity, what=what)
+    projection_uncertainty(p, model, **kw)
+    got, wall = _sync_time(torch, lambda: projection_uncertainty(
+        p, model, **kw))
+    t0 = time.perf_counter()
+    want = projection_uncertainty(p.cpu(), model, device="cpu", **kw)
+    wall_cpu = time.perf_counter() - t0
+    if not (got.device.type == "cuda" and got.shape == want.shape
+            and torch.isfinite(got).all()):
+        fail(f"[{phase}] {method} {what}: the card's result is not finite "
+             "on the card in the CPU's shape")
+    got = got.cpu()
+    if what == "covariance":
+        err = float((got - want).abs().max() / want.abs().max())
+        tol = UNC_COV_TOL
+    else:
+        err = float(((got - want).abs() / want.abs()).max())
+        tol = UNC_STDEV_RTOL
+    split = uncertainty_split(torch, model, p, method, atinfinity)
+    log(f"[{phase}] {method} {'at infinity' if atinfinity else 'at 1 m'} "
+        f"{what} on {tuple(p.shape[:-1])}: Nstate {nstate}, card "
+        f"{wall * 1e3:.2f} ms warm (J {split['J_s'] * 1e3:.2f}, factor "
+        f"{split['factor_s'] * 1e3:.2f}, F's Jacobian "
+        f"{split['F_jacobian_s'] * 1e3:.2f}, propagate "
+        f"{split['propagate_s'] * 1e3:.2f} ms), CPU {wall_cpu * 1e3:.1f} "
+        f"ms; card vs CPU {err:.3e} (tol {tol:g})")
+    if not err <= tol:
+        fail(f"[{phase}] {method} {what}: the card and the CPU disagree")
+    return dict(method=method, atinfinity=atinfinity, what=what,
+                Nstate=nstate, wall_s=wall, wall_cpu_s=wall_cpu, err=err,
+                **split)
+
+
+def phase_uncertainty(torch, oi_main, oi_4cam, oi_splined):
+    """projection_uncertainty on converged solves: opencv8_1cam (every
+    method, at 1 m and at infinity, covariance and worstdirection-stdev),
+    opencv8_4cam camera 2 and splined_30x18 (mean-pcam and ccp at 1 m) on
+    the 30 x 22 grid; then projection_diff with uncertainties between the
+    main path's model and a solve of its odd-numbered 42 frames, at
+    infinity and at 1 m.  Each against the same call on the CPU."""
+    from mrcal_tpu_torch import (cameramodel, projection_diff, sample_imager,
+                                 unproject)
+    from mrcal_tpu_torch.ops import batched_cholesky as bc
+    from mrcal_tpu_torch.optimize import spec_from_inputs
+    phase = "uncertainty"
+    t_phase = time.perf_counter()
+    calls = []
+
+    def grid_points(model):
+        q = sample_imager(UNC_GRID, None, *model.imagersize())
+        return unproject(q, *model.intrinsics(), normalize=True)
+
+    solved = {}
+    for name, oi, icam in (("opencv8_1cam", oi_main, 0),
+                           ("opencv8_4cam", oi_4cam, 2),
+                           ("splined_30x18", oi_splined, 0)):
+        solved[name] = _solved(oi)
+        model = cameramodel(optimization_inputs=solved[name],
+                            icam_intrinsics=icam)
+        v = grid_points(model)
+        nstate = spec_from_inputs(**solved[name]).Nstate
+        if name == "opencv8_1cam":
+            model_main = model
+            conditioning = uncertainty_conditioning(torch, phase, model, v)
+            cases = [(m, inf, what) for m in UNC_METHODS
+                     for inf in (False, True)
+                     for what in ("covariance", "worstdirection-stdev")]
+        else:
+            cases = [(m, False, "covariance")
+                     for m in ("mean-pcam", "cross-reprojection-ccp")]
+        for method, atinfinity, what in cases:
+            calls.append(dict(config=name, **uncertainty_call(
+                torch, f"{phase} {name}", model, v, nstate, method,
+                atinfinity, what)))
+
+    # the odd-numbered frames' solve launches the fused kernel at (42, 6,
+    # 15)
+    bc.reset_launches()
+    oi_odd = _solved(odd_frames(oi_main))
+    odd_launches = dict(bc.launches)
+    log(f"[{phase}] opencv8_1cam on its odd-numbered frames: "
+        f"{len(oi_odd['frames_rt_toref'])} frames, launches {odd_launches}")
+    if odd_launches["cholesky_factor_solve"] == 0:
+        fail(f"[{phase}] the odd-frame solve launched no fused kernel")
+    model_odd = cameramodel(optimization_inputs=oi_odd, icam_intrinsics=0)
+    diffs = []
+    for distance in (None, 1.0):
+        kw = dict(use_uncertainties=True, distance=distance)
+        projection_diff([model_main, model_odd], **kw)
+        (difflen, _, q0, Rt10), wall = _sync_time(
+            torch, lambda: projection_diff([model_main, model_odd], **kw))
+        t0 = time.perf_counter()
+        difflen_c, _, _, Rt10_c = projection_diff(
+            [model_main, model_odd], device="cpu", **kw)
+        wall_cpu = time.perf_counter() - t0
+        d_len = float((difflen.cpu() - difflen_c).abs().max())
+        d_Rt = float((Rt10.cpu() - Rt10_c).abs().max())
+        where = "at infinity" if distance is None else "at 1 m"
+        log(f"[{phase}] projection_diff {where} with uncertainties on "
+            f"{tuple(q0.shape[:-1])}: card {wall * 1e3:.1f} ms warm, CPU "
+            f"{wall_cpu * 1e3:.1f} ms; difflen median "
+            f"{float(difflen.median()):.6f} px, max "
+            f"{float(difflen.max()):.6f} px; card vs CPU: difflen "
+            f"{d_len:.3e} px (tol {DIFF_DIFFLEN_TOL:g}), Rt10 {d_Rt:.3e} "
+            f"(tol {DIFF_RT10_TOL:g})")
+        if not (torch.isfinite(difflen).all() and d_len <= DIFF_DIFFLEN_TOL
+                and d_Rt <= DIFF_RT10_TOL):
+            fail(f"[{phase}] projection_diff {where}: the card and the CPU "
+                 "disagree")
+        diffs.append(dict(distance=distance, wall_s=wall, wall_cpu_s=wall_cpu,
+                          difflen_err_px=d_len, Rt10_err=d_Rt))
+    wall = time.perf_counter() - t_phase
+    log(f"[{phase}] phase {wall:.1f} s")
+    return dict(calls=calls, diffs=diffs, odd_frames_launches=odd_launches,
+                conditioning=conditioning, wall_s=wall)
+
+
 def phase_profile(torch, phase, oi, wall_unprofiled):
     """Where the time of the f64 solve goes: one more solve under
     torch.profiler; device time by kernel, launches per iteration, the
@@ -1466,6 +1720,10 @@ def main():
     stamp("callbacks")
     triangulate = phase_triangulate(torch)
     stamp("triangulate")
+    uncertainty = phase_uncertainty(torch, oi_main,
+                                    others["opencv8_4cam"][0],
+                                    others["splined_30x18"][0])
+    stamp("uncertainty")
     entries, main_path["launch_floor"] = time_kernels(torch, card)
     stamp("kernel times")
     main_path["profile"], per_launch = phase_profile(
@@ -1492,7 +1750,9 @@ def main():
             mesh_nccl1_splined_30x18=mesh["splined_30x18"]["launches"][
                 e["name"]],
             mesh_gloo2_opencv8_1cam_rank0=mesh["gloo2"]["ranks"][0][
-                "launches"][e["name"]])
+                "launches"][e["name"]],
+            uncertainty_odd_frames_opencv8_1cam=uncertainty[
+                "odd_frames_launches"][e["name"]])
         e["device_us_per_launch_main_path"] = per_launch[e["name"]]
     log(f"[main] summary {json.dumps(main_path)}")
     for name, (_, summary) in list(others.items()) + list(batches.items()):
@@ -1500,6 +1760,7 @@ def main():
     log(f"[mesh] summary {json.dumps(mesh)}")
     log(f"[callback] summary {json.dumps(callbacks)}")
     log(f"[triangulate] summary {json.dumps(triangulate)}")
+    log(f"[uncertainty] summary {json.dumps(uncertainty)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

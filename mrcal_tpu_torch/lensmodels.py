@@ -144,6 +144,15 @@ def parse_lensmodel(name):
     return lm
 
 
+def supported_lensmodels():
+    """Every lens model family, configured families with a placeholder
+    configuration, as mrcal.supported_lensmodels() lists them.  CAHVOR and
+    CAHVORE parse but do not project yet (``require_ported``)."""
+    return tuple(fam + "".join(f"_{f}=..." for f, _ in
+                               _CONFIG_FIELDS.get(fam, ()))
+                 for fam in _FAMILIES)
+
+
 def lensmodel_num_params(lensmodel):
     return parse_lensmodel(lensmodel).num_params
 

@@ -19,7 +19,11 @@ from .layout import (  # noqa: F401
     measurement_index_points_triangulated,
     measurement_index_regularization,
     decode_observation_indices_points_triangulated,
+    num_intrinsics_optimization_params,
+    pack_state, unpack_state,
+    camera_extrinsics_indices, corresponding_icam_extrinsics,
 )
 from .jacobian import optimizer_callback  # noqa: F401
+from .residuals import drt_cross_reprojection__dbpacked  # noqa: F401
 from .solver import (  # noqa: F401
     optimize, optimize_batch, pad_problems_to_common_structure)

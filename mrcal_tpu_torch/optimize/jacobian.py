@@ -35,12 +35,14 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-def _sparse_jacobian(b, arrays, spec: ProblemSpec):
+def _jacobian_coo(b, arrays, spec: ProblemSpec):
     """The packed-coordinate measurement Jacobian at the packed state b (a
-    tensor on the device of `arrays`) as a scipy CSR matrix of shape
-    (Nmeasurements, Nstate).  Entries of an observation's blocks that are
-    0 stay stored; the regularization rows store their nonzeros only."""
+    tensor on the device of `arrays`) as COO triplets (rows, cols, vals),
+    tensors on that device: int64, int64 and b's dtype.  Entries of an
+    observation's blocks that are 0 are kept; the regularization rows keep
+    their nonzeros only."""
     s = spec.selections
+    dev = b.device
     rows_of = _ObservationRows(spec, arrays)
     # the rows take a batch of problems: this one as a batch of one
     arrays1 = _batch_of_one(arrays)
@@ -48,7 +50,10 @@ def _sparse_jacobian(b, arrays, spec: ProblemSpec):
                                             scales=rows_of.consts.state))
 
     def one(t):
-        return _np(t[0])
+        return t[0]
+
+    def arange(n):
+        return torch.arange(n, device=dev)
 
     Nip = spec.Nintrinsics_state_per_cam
     Npv = spec.Npoints_variable
@@ -58,8 +63,8 @@ def _sparse_jacobian(b, arrays, spec: ProblemSpec):
     ROWS, COLS, VALS = [], [], []
 
     def emit(rows, cols, vals):
-        """rows/cols/vals broadcastable numpy arrays -> COO triplets."""
-        rows, cols, vals = np.broadcast_arrays(rows, cols, vals)
+        """rows/cols/vals broadcastable tensors -> COO triplets."""
+        rows, cols, vals = torch.broadcast_tensors(rows, cols, vals)
         ROWS.append(rows.reshape(-1))
         COLS.append(cols.reshape(-1))
         VALS.append(vals.reshape(-1))
@@ -69,19 +74,16 @@ def _sparse_jacobian(b, arrays, spec: ProblemSpec):
         starting at col0, for the rows where `have` holds."""
         if have is not None:
             rows, index, J = rows[have], index[have], J[have]
-        emit(rows, (col0 + width * index)[:, None, None] + np.arange(width),
-             J)
+        emit(rows, (col0 + width * index)[:, None, None] + arange(width), J)
 
     # ---------------- board observations: one row pair per corner --------
     if spec.Nobservations_board:
-        idx = np.repeat(_np(arrays["indices_board"]),
-                        rows_of.HW, axis=0)                 # per corner
-        rows = np.arange(len(idx) * 2).reshape(-1, 2, 1)
+        idx = arrays["indices_board"].repeat_interleave(rows_of.HW, dim=0)
+        rows = arange(len(idx) * 2).reshape(-1, 2, 1)
         if _splined_fast_path_ok(spec):
             _, J, Jw, wincols, _ = rows_of.splined_board(
                 {k: v[0] for k, v in pk1.items()}, arrays)
-            J = {k: _np(v) for k, v in J.items()}
-            emit(rows, i_intr0 + _np(wincols)[:, None, :], _np(Jw))
+            emit(rows, i_intr0 + wincols[:, None, :], Jw)
         else:
             _, J = rows_of.board(pk1, arrays1)
             J = {k: one(v) for k, v in J.items()}          # (N, 2, n)
@@ -93,16 +95,16 @@ def _sparse_jacobian(b, arrays, spec: ProblemSpec):
             emit_blocks(rows, spec.state_index_frames0, 6, idx[:, 0],
                         J["frame"])
         if spec.has_calobject_warp:
-            emit(rows, spec.state_index_calobject_warp0 + np.arange(2),
+            emit(rows, spec.state_index_calobject_warp0 + arange(2),
                  J["warp"])
 
     # ---------------- point observations ----------------
     if spec.Nobservations_point:
-        idx = _np(arrays["indices_point"])
+        idx = arrays["indices_point"]
         _, J = rows_of.point(pk1, arrays1)
         J = {k: one(v) for k, v in J.items()}
         rows = spec.measurement_index_points0 + \
-            np.arange(len(idx) * 2).reshape(-1, 2, 1)
+            arange(len(idx) * 2).reshape(-1, 2, 1)
         if Nip:
             emit_blocks(rows, i_intr0, Nip, idx[:, 1], J["intr"])
         if s.do_optimize_extrinsics:
@@ -116,9 +118,9 @@ def _sparse_jacobian(b, arrays, spec: ProblemSpec):
     if Ntri and s.do_optimize_extrinsics and spec.Ncameras_extrinsics:
         _, J0, J1 = rows_of.tri(pk1, arrays1)
         rows = spec.measurement_index_points_triangulated0 + \
-            np.arange(Ntri).reshape(-1, 1, 1)
+            arange(Ntri).reshape(-1, 1, 1)
         for ie, Jk in ((rows_of.ie0, J0), (rows_of.ie1, J1)):
-            ice = _np(ie) - 1
+            ice = ie - 1
             emit_blocks(rows, i_ext0, 6, ice, one(Jk)[:, None, :], ice >= 0)
 
     # ---------------- regularization: nonzero entries only -------------
@@ -132,27 +134,40 @@ def _sparse_jacobian(b, arrays, spec: ProblemSpec):
                          and s.do_optimize_intrinsics_distortions) else 0)
             Nci, nterms = Jreg.shape[:2]
             # the distortion rows of every camera, then the center pixels
-            for ci in range(Nci):
-                for k in range(nterms):
-                    row = (r0 + ci * ndist + k if k < ndist else
-                           r0 + Nci * ndist + ci * (nterms - ndist) + k
-                           - ndist)
-                    nz = np.nonzero(Jreg[ci, k])[0]
-                    emit(np.full(len(nz), row), i_intr0 + Nip * ci + nz,
-                         Jreg[ci, k, nz])
+            ci = arange(Nci)[:, None]
+            k = arange(nterms)[None, :]
+            rows = torch.where(k < ndist, r0 + ci * ndist + k,
+                               r0 + Nci * ndist + ci * (nterms - ndist)
+                               + k - ndist)
+            cols = i_intr0 + Nip * ci[..., None] + arange(Nip)
+            nz = Jreg != 0
+            emit(rows[..., None].expand(Jreg.shape)[nz],
+                 cols.expand(Jreg.shape)[nz], Jreg[nz])
         if (s.do_apply_regularization_unity_cam01
                 and s.do_optimize_extrinsics
                 and spec.Ncameras_extrinsics > 0):
             Ju = one(rows_of.unity_cam01(pk1)[1])
-            nz = np.nonzero(Ju)[0]
-            emit(np.full(len(nz), spec.Nmeasurements - 1), i_ext0 + nz,
-                 Ju[nz])
+            nz = Ju != 0
+            emit(torch.full((), spec.Nmeasurements - 1, device=dev),
+                 i_ext0 + arange(6)[nz], Ju[nz])
 
-    if ROWS:
-        rows, cols, vals = (np.concatenate(a) for a in (ROWS, COLS, VALS))
-    else:
-        rows = cols = np.zeros(0, np.int64)
-        vals = np.zeros(0, np.float64)
+    if not ROWS:
+        empty = torch.zeros(0, dtype=torch.int64, device=dev)
+        return empty, empty, b.new_zeros(0)
+    return tuple(torch.cat(a) for a in (ROWS, COLS, VALS))
+
+
+def _sparse_jacobian(b, arrays, spec: ProblemSpec):
+    """The packed-coordinate measurement Jacobian at the packed state b as
+    a scipy CSR matrix of shape (Nmeasurements, Nstate): the triplets of
+    _jacobian_coo, copied to the host once."""
+    return _csr(_jacobian_coo(b, arrays, spec), spec)
+
+
+def _csr(coo, spec: ProblemSpec):
+    """COO triplets on any device -> a scipy CSR matrix of shape
+    (Nmeasurements, Nstate), with sorted indices and no duplicates."""
+    rows, cols, vals = (_np(t) for t in coo)
     J = scipy.sparse.coo_matrix(
         (vals, (rows, cols)),
         shape=(spec.Nmeasurements, spec.Nstate)).tocsr()

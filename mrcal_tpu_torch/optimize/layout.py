@@ -477,3 +477,71 @@ def decode_observation_indices_points_triangulated(**kw):
         iobs += n
         imeas += npairs
     return out
+
+
+def camera_extrinsics_indices(icam_intrinsics, **kw):
+    """Every extrinsics index under which camera icam_intrinsics is
+    observed, sorted (-1: at the reference).  A stationary camera gives one
+    index, a moving camera several, which must form one consecutive block
+    of real extrinsics so that their state slice is contiguous.  Board and
+    point observations both count."""
+    rows = []
+    for key in ("indices_frame_camintrinsics_camextrinsics",
+                "indices_point_camintrinsics_camextrinsics"):
+        idx = kw.get(key)
+        if idx is not None and np.asarray(idx).size:
+            rows.append(np.asarray(idx)[:, 1:3])
+    if not rows:
+        raise ValueError("no observation indices; cannot find extrinsics "
+                         f"for camera {icam_intrinsics}")
+    icice = np.concatenate(rows, axis=0)
+    ce = np.unique(icice[icice[:, 0] == icam_intrinsics, 1])
+    if ce.size == 0:
+        raise ValueError(f"no observations for camera {icam_intrinsics}")
+    if ce.size > 1:
+        d = np.unique(np.diff(ce))
+        if not (d.size == 1 and d[0] == 1):
+            raise ValueError(
+                f"camera {icam_intrinsics} has a non-consecutive extrinsics "
+                f"block {ce}; only consecutive blocks are supported")
+        if ce[0] < 0:
+            raise ValueError(
+                f"moving camera {icam_intrinsics} has some poses at the "
+                "reference; not supported")
+    return ce.astype(int)
+
+
+def corresponding_icam_extrinsics(icam_intrinsics, **kw):
+    """The extrinsics index of camera icam_intrinsics (-1 at the
+    reference) in a problem where each camera has one intrinsics index and
+    at most one extrinsics index; ValueError for a moving camera."""
+    idx = kw.get("indices_frame_camintrinsics_camextrinsics")
+    if idx is None:
+        raise ValueError("need indices_frame_camintrinsics_camextrinsics")
+    idx = np.asarray(idx)
+    mine = idx[idx[:, 1] == icam_intrinsics]
+    if mine.size == 0:
+        raise ValueError(f"no observations for camera {icam_intrinsics}")
+    ce = np.unique(mine[:, 2])
+    if ce.size != 1:
+        raise ValueError(
+            "not a vanilla calibration problem: camera "
+            f"{icam_intrinsics} has multiple extrinsics indices {ce}")
+    return int(ce[0])
+
+
+def pack_state(b, spec=None, **kw):
+    """b (..., Nstate) in real units -> the packed (unitless) state."""
+    spec = spec if spec is not None else spec_from_inputs(**kw)
+    return np.asarray(b) / spec.scales()
+
+
+def unpack_state(b, spec=None, **kw):
+    """The packed state -> real units."""
+    spec = spec if spec is not None else spec_from_inputs(**kw)
+    return np.asarray(b) * spec.scales()
+
+
+def num_intrinsics_optimization_params(**kw):
+    """The number of optimized intrinsics parameters per camera."""
+    return spec_from_inputs(**kw).Nintrinsics_state_per_cam

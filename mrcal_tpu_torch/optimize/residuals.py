@@ -2,7 +2,8 @@
 
 Counterpart of ``mrcal_tpu/optimize/residuals.py`` for boards, discrete
 points, triangulated points and the parametric and splined
-regularization.  Reference
+regularization, and of its cross-reprojection machinery
+(``residuals_cross``, ``drt_cross_reprojection__dbpacked``).  Reference
 semantics:
 
   - board: 2 weighted-pixel-error measurements per corner; weight < 0 marks
@@ -21,11 +22,13 @@ Everything is vectorized over observations (gather + broadcast).
 import numpy as np
 import torch
 
-from .._config import DEFAULT_DTYPE
-from ..lensmodels import project_core, unproject_core
-from ..poseutils import _compose_rt2, _rotate_point_r, _transform_point_rt
+from .._config import DEFAULT_DTYPE, resolve_device
+from ..lensmodels import project_core, require_ported, unproject_core
+from ..poseutils import (_compose_rt2, _invert_rt, _rotate_point_r,
+                         _transform_point_rt)
 from ..triangulation import _triangulated_error
-from .layout import ProblemSpec, normalize_inputs, triangulated_pair_indices
+from .layout import (ProblemSpec, normalize_inputs, spec_from_inputs,
+                     triangulated_pair_indices)
 
 
 # ----------------------------------------------------------------------------
@@ -383,3 +386,132 @@ def pack_params(params, spec: ProblemSpec):
 
 def residuals_from_packed(b, arrays, spec: ProblemSpec):
     return residuals_full(split_packed_state(b, arrays, spec), arrays, spec)
+
+
+# ----------------------------------------------------------------------------
+# cross-reprojection
+# ----------------------------------------------------------------------------
+
+def residuals_cross(rt_cc, b, arrays, spec: ProblemSpec,
+                    rt_cam_star_ref=None, ccp_per_observation=False):
+    """The boards' and points' measurement rows with a rigid perturbation
+    of the reference inserted between every camera and frame transform.
+
+    Flavors:
+      - 'ccp' stationary (rt_cam_star_ref given): rt_ref_ref* is rt_cc
+        (= rt_cam*_cam*) conjugated by the query camera's one extrinsics;
+      - 'ccp' general (ccp_per_observation=True): each observation row
+        conjugates rt_cc by its own extrinsics, which handles a moving
+        camera (one camera observed under several extrinsics); for a
+        stationary camera the query camera's rows reduce to the
+        conjugate form;
+      - 'rrp' (neither given): rt_cc is rt_ref_ref* itself."""
+    params = split_packed_state(b, arrays, spec)
+    if not ccp_per_observation:
+        rt_ref_refp = rt_cc if rt_cam_star_ref is None else _compose_rt2(
+            _invert_rt(rt_cam_star_ref), _compose_rt2(rt_cc, rt_cam_star_ref))
+
+    def rt_rr_rows(rt_cam_ref_rows):
+        """Per row rt_ref_ref*: rt_cc conjugated by the row's own
+        extrinsics in the per-observation flavor (identity conjugation
+        for rows of the camera at the reference)."""
+        if not ccp_per_observation:
+            return rt_ref_refp.expand(rt_cam_ref_rows.shape)
+        return _compose_rt2(_invert_rt(rt_cam_ref_rows),
+                            _compose_rt2(rt_cc.expand(rt_cam_ref_rows.shape),
+                                         rt_cam_ref_rows))
+
+    ext_pad = _ext_padded(params["extrinsics"])
+    parts = []
+    if spec.Nobservations_board:
+        obs = arrays["observations_board"]
+        idx = arrays["indices_board"]
+        iframe, ici, ice = idx[:, 0], idx[:, 1], idx[:, 2]
+        rt_cam_ref = ext_pad[ice + 1]
+        rt_ref_frame = _compose_rt2(rt_rr_rows(rt_cam_ref),
+                                    params["frames"][iframe])
+        rt_joint = _compose_rt2(rt_cam_ref, rt_ref_frame)
+        pts = board_points_ref(spec, params["calobject_warp"])
+        p_cam = _transform_point_rt(rt_joint[:, None, None, :], pts[None])
+        q = project_core(p_cam, params["intrinsics"][ici][:, None, None, :],
+                         spec.lensmodel)
+        w = torch.clamp_min(obs[..., 2], 0.0)
+        parts.append(((q - obs[..., :2]) * w[..., None]).reshape(-1))
+    if spec.Nobservations_point:
+        obs = arrays["observations_point"]
+        idx = arrays["indices_point"]
+        ipt, ici, ice = idx[:, 0], idx[:, 1], idx[:, 2]
+        rt_cam_ref = ext_pad[ice + 1]
+        p_ref = _transform_point_rt(rt_rr_rows(rt_cam_ref),
+                                    params["points"][ipt])
+        p_cam = _transform_point_rt(rt_cam_ref, p_ref)
+        q = project_core(p_cam, params["intrinsics"][ici], spec.lensmodel)
+        w = torch.where(obs[..., 2] > 0.0, obs[..., 2], 0.0)
+        parts.append(((q - obs[..., :2]) * w[..., None]).reshape(-1))
+    if not parts:
+        return b.new_zeros((0,))
+    return torch.cat(parts)
+
+
+def _drt_cross(spec: ProblemSpec, arrays, b, icam_intrinsics, coo=None):
+    """Kpacked (6, Nstate), a tensor like b: see
+    drt_cross_reprojection__dbpacked.  coo: the measurement Jacobian's
+    triplets (jacobian._jacobian_coo) at b, if the caller has them."""
+    from ..factorization import _cholesky_factor_of_JtJ
+    from .jacobian import _jacobian_coo
+    ccp = icam_intrinsics is not None and icam_intrinsics >= 0
+    Jcross = torch.func.jacfwd(
+        lambda rt: residuals_cross(rt, b, arrays, spec,
+                                   ccp_per_observation=ccp))(
+        b.new_zeros(6))                                # (Nmeas_obs, 6)
+    if ccp:
+        # the ccp fit takes the query camera's rows only.  Masking Jcross
+        # masks both Jc^T Jc and Jc^T J (the mask is idempotent)
+        masks = []
+        if spec.Nobservations_board:
+            masks.append((arrays["indices_board"][:, 1] == icam_intrinsics)
+                         .repeat_interleave(
+                             2 * spec.calibration_object_height_n
+                             * spec.calibration_object_width_n))
+        if spec.Nobservations_point:
+            masks.append((arrays["indices_point"][:, 1] == icam_intrinsics)
+                         .repeat_interleave(2))
+        if masks:
+            Jcross = Jcross * torch.cat(masks)[:, None]
+
+    # Jc^T J over the perturbed quantities of the cross-reprojection flow:
+    # frames, points and the warp (rrp); the extrinsics too (ccp)
+    rows, cols, vals = coo if coo is not None else _jacobian_coo(b, arrays,
+                                                                 spec)
+    Jc_rows = torch.cat([Jcross, Jcross.new_zeros(
+        (spec.Nmeasurements - Jcross.shape[0], 6))])[rows]
+    JcT_J = b.new_zeros((spec.Nstate, 6)).index_add_(
+        0, cols, vals[:, None] * Jc_rows).T.contiguous()
+    JcT_J[:, :(spec.state_index_extrinsics0 if ccp
+               else spec.state_index_frames0)] = 0.0
+    L = _cholesky_factor_of_JtJ(Jcross)
+    if L is None:
+        raise Exception("Jcross^T Jcross is not positive definite")
+    y = torch.linalg.solve_triangular(L, JcT_J, upper=False)
+    return -torch.linalg.solve_triangular(L.T, y, upper=True)
+
+
+def drt_cross_reprojection__dbpacked(icam_intrinsics=0, *, device=None,
+                                     **kw):
+    """Kpacked (6, Nstate), a numpy array: the linear map from a packed
+    state perturbation to the implied rigid transform of the query
+    camera's frame,
+
+      Kpacked = -inv(Jcross^T Jcross) Jcross^T J_packed[perturbed cols]
+
+    icam_intrinsics >= 0 gives drt_cam*_cam*/dbpacked of that camera
+    ('ccp', fitted to that camera's rows only), icam_intrinsics < 0
+    drt_ref_ref*/dbpacked ('rrp', every row).  Runs on the card unless
+    device says otherwise."""
+    device = resolve_device(device)
+    kw = normalize_inputs(kw)
+    spec = spec_from_inputs(**kw)
+    require_ported(spec.lensmodel)
+    arrays = arrays_from_inputs(kw, device=device)
+    b = pack_params(params_from_arrays(arrays), spec)
+    return _drt_cross(spec, arrays, b, icam_intrinsics).cpu().numpy()

@@ -1,10 +1,12 @@
-"""The rotations and rigid transforms of the calibration path, in PyTorch.
+"""Rotations and rigid transforms, in PyTorch.
 
-Counterpart of the core functions of ``mrcal_tpu/poseutils.py``, with the
-same conventions: a rotation is a Rodrigues vector r (axis * angle), an rt
-transform is ``[r, t]`` (6,) applied as ``R(r) x + t``, and composing rt0
-with rt1 maps coords-2 to coords-0 when rt0 maps 1->0 and rt1 maps 2->1.
-Quaternions are (w,x,y,z).
+Counterpart of ``mrcal_tpu/poseutils.py``, with the same conventions: a
+rotation is a (3,3) matrix R or a Rodrigues vector r (axis * angle), an rt
+transform is ``[r, t]`` (6,) applied as ``R(r) x + t``, an Rt transform is
+(4,3) with R on top and t in the last row, and composing rt0 with rt1 maps
+coords-2 to coords-0 when rt0 maps 1->0 and rt1 maps 2->1.  Quaternions
+are (w,x,y,z).  The public functions take numpy arrays or tensors, run on
+the card unless given ``device="cpu"``, and return tensors.
 
 Every function broadcasts over leading dimensions and is differentiable
 by autograd everywhere, r = 0 included: the small-angle Taylor branches
@@ -17,6 +19,20 @@ import numpy as np
 import torch
 
 from ._config import DEFAULT_DTYPE, resolve_device
+
+__all__ = [
+    "identity_R", "identity_r", "identity_Rt", "identity_rt", "identity_qt",
+    "skew_symmetric",
+    "r_from_R", "R_from_r", "invert_R",
+    "rt_from_Rt", "Rt_from_rt", "invert_Rt", "invert_rt",
+    "compose_Rt", "compose_r", "compose_rt",
+    "compose_r_tinyr0_gradientr0", "compose_r_tinyr1_gradientr1",
+    "compose_rt_tinyrt0_gradientrt0", "compose_rt_tinyrt1_gradientrt1",
+    "rotate_point_r", "rotate_point_R",
+    "transform_point_rt", "transform_point_Rt",
+    "qt_from_Rt", "Rt_from_qt", "quat_from_R", "R_from_quat",
+    "R_aligned_to_vector",
+]
 
 
 def skew_symmetric(v):
@@ -142,7 +158,8 @@ def _as_tensors(device, *arrays):
     def tensor(a, **kw):
         if not torch.is_tensor(a):
             a = np.asarray(a)
-            if any(st < 0 for st in a.strides):    # torch takes none
+            # torch takes no negative strides, and warns on read-only data
+            if any(st < 0 for st in a.strides) or not a.flags.writeable:
                 a = a.copy()
         return torch.as_tensor(a, device=device, **kw)
 
@@ -152,16 +169,16 @@ def _as_tensors(device, *arrays):
                  for a in arrays)
 
 
-def _vjac(fn, args, core_dims, argnum):
-    """d fn / d args[argnum] by forward mode, for fn a function of single
-    samples whose argument i has core_dims[i] trailing dimensions; batched
-    over the broadcast leading dimensions of args."""
+def _vjac(fn, args, core_dims, argnum, jac=torch.func.jacfwd):
+    """d fn / d args[argnum] (by forward mode, or by `jac`), for fn a
+    function of single samples whose argument i has core_dims[i] trailing
+    dimensions; batched over the broadcast leading dimensions of args."""
     core = [a.dim() - d for a, d in zip(args, core_dims)]
     lead = torch.Size(np.broadcast_shapes(*(a.shape[:c]
                                             for a, c in zip(args, core))))
     flat = [a.expand(lead + a.shape[c:]).reshape((-1,) + a.shape[c:])
             for a, c in zip(args, core)]
-    J = torch.func.vmap(torch.func.jacfwd(fn, argnums=argnum))(*flat)
+    J = torch.func.vmap(jac(fn, argnums=argnum))(*flat)
     return J.reshape(lead + J.shape[1:])
 
 
@@ -292,3 +309,276 @@ def transform_point_rt(rt, x, *, get_gradients=False, out=None,
         return _transform_point_rt(rt_, x_, inverted)
     return _finish((u, _vjac(f, (rt, x), (1, 1), 0),
                     _vjac(f, (rt, x), (1, 1), 1)), out)
+
+
+# ----------------------------------------------------------------------------
+# identities
+# ----------------------------------------------------------------------------
+
+def _identity(make, dtype, device):
+    return make(dtype or DEFAULT_DTYPE, resolve_device(device))
+
+
+def identity_R(dtype=None, *, device=None):
+    return _identity(lambda dt, dev: torch.eye(3, dtype=dt, device=dev),
+                     dtype, device)
+
+
+def identity_r(dtype=None, *, device=None):
+    return _identity(lambda dt, dev: torch.zeros(3, dtype=dt, device=dev),
+                     dtype, device)
+
+
+def identity_Rt(dtype=None, *, device=None):
+    return _identity(lambda dt, dev: torch.cat(
+        [torch.eye(3, dtype=dt, device=dev),
+         torch.zeros((1, 3), dtype=dt, device=dev)]), dtype, device)
+
+
+def identity_rt(dtype=None, *, device=None):
+    return _identity(lambda dt, dev: torch.zeros(6, dtype=dt, device=dev),
+                     dtype, device)
+
+
+def identity_qt(dtype=None, *, device=None):
+    return _identity(lambda dt, dev: torch.tensor(
+        [1., 0., 0., 0., 0., 0., 0.], dtype=dt, device=dev), dtype, device)
+
+
+# ----------------------------------------------------------------------------
+# rotation matrices, Rt transforms and quaternions
+# ----------------------------------------------------------------------------
+
+def _quat_from_R(R):
+    """Rotation matrix -> unit quaternion (w,x,y,z), w >= 0.  Shepperd's
+    method without branches: the four candidates from the four pivots (the
+    trace and the diagonal), the one of the largest pivot selected."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp_min(x, 1e-30))
+
+    s0 = safe_sqrt(1.0 + tr)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22)
+    s2 = safe_sqrt(1.0 - m00 + m11 - m22)
+    s3 = safe_sqrt(1.0 - m00 - m11 + m22)
+    cand = torch.stack([
+        torch.stack([s0, (m21 - m12) / s0, (m02 - m20) / s0,
+                     (m10 - m01) / s0], dim=-1),
+        torch.stack([(m21 - m12) / s1, s1, (m01 + m10) / s1,
+                     (m02 + m20) / s1], dim=-1),
+        torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, s2,
+                     (m12 + m21) / s2], dim=-1),
+        torch.stack([(m10 - m01) / s3, (m02 + m20) / s3,
+                     (m12 + m21) / s3, s3], dim=-1)], dim=-2)
+    best = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    q = torch.take_along_dim(cand, best[..., None, None], dim=-2)[..., 0, :]
+    q = q * 0.5
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def _r_from_R(R):
+    return _r_from_quat(_quat_from_R(R))
+
+
+def _R_from_quat(q):
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = (q[..., i] for i in range(4))
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], dim=-1)], dim=-2)
+
+
+def _Rt_from_rt(rt):
+    return torch.cat([_R_from_r(rt[..., :3]), rt[..., None, 3:]], dim=-2)
+
+
+def _rt_from_Rt(Rt):
+    return torch.cat([_r_from_R(Rt[..., :3, :]), Rt[..., 3, :]], dim=-1)
+
+
+def _invert_Rt(Rt):
+    """inv([R; t]) = [R^T; -R^T t]."""
+    Rinv = Rt[..., :3, :].transpose(-1, -2)
+    tinv = -torch.einsum("...ij,...j->...i", Rinv, Rt[..., 3, :])
+    return torch.cat([Rinv, tinv[..., None, :]], dim=-2)
+
+
+def _compose_Rt2(Rt0, Rt1):
+    R0 = Rt0[..., :3, :]
+    t01 = torch.einsum("...ij,...j->...i", R0, Rt1[..., 3, :]) + Rt0[..., 3, :]
+    return torch.cat([R0 @ Rt1[..., :3, :], t01[..., None, :]], dim=-2)
+
+
+def _transform_point_Rt(Rt, x, inverted=False):
+    R = Rt[..., :3, :]
+    t = Rt[..., 3, :]
+    if inverted:
+        return torch.einsum("...ji,...j->...i", R, x - t)
+    return torch.einsum("...ij,...j->...i", R, x) + t
+
+
+# ----------------------------------------------------------------------------
+# public API (the JAX package's signatures, plus device)
+# ----------------------------------------------------------------------------
+
+def r_from_R(R, *, get_gradients=False, out=None, device=None):
+    """Rotation matrices -> Rodrigues vectors.  (...,3,3) -> (...,3).
+
+    get_gradients: also returns dr/dR (...,3,3,3)."""
+    (R,) = _as_tensors(device, R)
+    r = _r_from_R(R)
+    if not get_gradients:
+        return _finish(r, out)
+    return _finish((r, _vjac(_r_from_R, (R,), (2,), 0)), out)
+
+
+def invert_R(R, *, out=None, device=None):
+    (R,) = _as_tensors(device, R)
+    return _finish(R.transpose(-1, -2).contiguous(), out)
+
+
+def rt_from_Rt(Rt, *, get_gradients=False, out=None, device=None):
+    """(...,4,3) Rt -> (...,6) rt.  get_gradients: also dr/dR
+    (...,3,3,3)."""
+    (Rt,) = _as_tensors(device, Rt)
+    rt = _rt_from_Rt(Rt)
+    if not get_gradients:
+        return _finish(rt, out)
+    return _finish((rt, _vjac(_r_from_R, (Rt[..., :3, :],), (2,), 0)), out)
+
+
+def Rt_from_rt(rt, *, get_gradients=False, out=None, device=None):
+    """(...,6) rt -> (...,4,3) Rt.  get_gradients: also dR/dr
+    (...,3,3,3)."""
+    (rt,) = _as_tensors(device, rt)
+    Rt = _Rt_from_rt(rt)
+    if not get_gradients:
+        return _finish(Rt, out)
+    return _finish((Rt, _vjac(_R_from_r, (rt[..., :3],), (1,), 0)), out)
+
+
+def invert_Rt(Rt, *, out=None, device=None):
+    """inv([R; t]) = [R^T; -R^T t].  (...,4,3) -> (...,4,3)."""
+    (Rt,) = _as_tensors(device, Rt)
+    return _finish(_invert_Rt(Rt), out)
+
+
+def invert_rt(rt, *, get_gradients=False, out=None, device=None):
+    """(...,6) -> (...,6).  get_gradients: also drt_out/drt_in
+    (...,6,6)."""
+    (rt,) = _as_tensors(device, rt)
+    rt_out = _invert_rt(rt)
+    if not get_gradients:
+        return _finish(rt_out, out)
+    return _finish((rt_out, _vjac(_invert_rt, (rt,), (1,), 0)), out)
+
+
+def compose_Rt(*Rt, out=None, inverted0=False, inverted1=False,
+               device=None):
+    """Compose Rt transformations left to right.  Each (...,4,3).
+    inverted0/inverted1 (2 transforms only) invert the first/second before
+    composing."""
+    _two_only(len(Rt), "transforms", inverted0=inverted0,
+              inverted1=inverted1)
+    Rts = list(_as_tensors(device, *Rt))
+    if inverted0:
+        Rts[0] = _invert_Rt(Rts[0])
+    if inverted1:
+        Rts[1] = _invert_Rt(Rts[1])
+    acc = Rts[0]
+    for nxt in Rts[1:]:
+        acc = _compose_Rt2(acc, nxt)
+    return _finish(acc, out)
+
+
+def transform_point_Rt(Rt, x, *, get_gradients=False, out=None,
+                       inverted=False, device=None):
+    """u = R x + t with Rt = [R; t] (...,4,3) (the inverse transform if
+    inverted).  get_gradients: returns (u, du/dRt (...,3,4,3), du/dx
+    (...,3,3))."""
+    Rt, x = _as_tensors(device, Rt, x)
+    u = _transform_point_Rt(Rt, x, inverted)
+    if not get_gradients:
+        return _finish(u, out)
+
+    def f(Rt_, x_):
+        return _transform_point_Rt(Rt_, x_, inverted)
+    return _finish((u, _vjac(f, (Rt, x), (2, 1), 0),
+                    _vjac(f, (Rt, x), (2, 1), 1)), out)
+
+
+def _tiny_gradient(core, a, argnum, out, device):
+    """d core(x0, x1)/d x_argnum at x_argnum = 0, the other argument a."""
+    (a,) = _as_tensors(device, a)
+    args = [a, a]
+    args[argnum] = torch.zeros_like(a)
+    return _finish(_vjac(core, tuple(args), (1, 1), argnum), out)
+
+
+def compose_r_tinyr0_gradientr0(r1, *, out=None, device=None):
+    """d compose_r(r0, r1)/dr0 at r0 = 0.  (...,3) -> (...,3,3)."""
+    return _tiny_gradient(_compose_r, r1, 0, out, device)
+
+
+def compose_r_tinyr1_gradientr1(r0, *, out=None, device=None):
+    """d compose_r(r0, r1)/dr1 at r1 = 0.  (...,3) -> (...,3,3)."""
+    return _tiny_gradient(_compose_r, r0, 1, out, device)
+
+
+def compose_rt_tinyrt0_gradientrt0(rt1, *, out=None, device=None):
+    """d compose_rt(rt0, rt1)/drt0 at rt0 = 0.  (...,6) -> (...,6,6)."""
+    return _tiny_gradient(_compose_rt2, rt1, 0, out, device)
+
+
+def compose_rt_tinyrt1_gradientrt1(rt0, *, out=None, device=None):
+    """d compose_rt(rt0, rt1)/drt1 at rt1 = 0.  (...,6) -> (...,6,6)."""
+    return _tiny_gradient(_compose_rt2, rt0, 1, out, device)
+
+
+def quat_from_R(R, *, out=None, device=None):
+    """(...,3,3) -> unit quaternion (...,4), (w,x,y,z), w >= 0."""
+    (R,) = _as_tensors(device, R)
+    return _finish(_quat_from_R(R), out)
+
+
+def R_from_quat(q, *, out=None, device=None):
+    """(...,4) (w,x,y,z), normalized first -> (...,3,3)."""
+    (q,) = _as_tensors(device, q)
+    return _finish(_R_from_quat(q), out)
+
+
+def qt_from_Rt(Rt, *, out=None, device=None):
+    """(...,4,3) Rt -> (...,7) qt = [quaternion (w,x,y,z), t]."""
+    (Rt,) = _as_tensors(device, Rt)
+    return _finish(torch.cat([_quat_from_R(Rt[..., :3, :]), Rt[..., 3, :]],
+                             dim=-1), out)
+
+
+def Rt_from_qt(qt, *, out=None, device=None):
+    """(...,7) qt -> (...,4,3) Rt."""
+    (qt,) = _as_tensors(device, qt)
+    return _finish(torch.cat([_R_from_quat(qt[..., :4]), qt[..., None, 4:]],
+                             dim=-2), out)
+
+
+def R_aligned_to_vector(v, *, device=None):
+    """An orthonormal R whose third row is v/|v|; the first two rows
+    complete a right-handed basis seeded by the world axis (x, else y)
+    least aligned with v."""
+    (v,) = _as_tensors(device, v)
+    z = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    ex = torch.tensor([1., 0., 0.], dtype=v.dtype, device=v.device)
+    ey = torch.tensor([0., 1., 0.], dtype=v.dtype, device=v.device)
+    seed = torch.where((torch.abs(z[..., 0]) < 0.9)[..., None], ex, ey)
+    x = seed - z * torch.sum(seed * z, dim=-1, keepdim=True)
+    x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    return torch.stack([x, torch.linalg.cross(z, x, dim=-1), z], dim=-2)
