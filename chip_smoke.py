@@ -41,6 +41,17 @@ nonzero:
    K = 69 columns), warm-up, then a timed f64 solve held to the JAX
    package's f64 rms, 0.29864967030878176 px +- 1e-6, in 32 +- 3
    iterations, one launch of each path kernel per iteration.
+   cahvor_1cam and cahvore_1cam: opencv8_1cam's problem with the CAHVOR
+   model, and with CAHVORE at linearity 0.37 (32935 and 32938
+   measurements, 515 and 518 states; the frame blocks are solved against
+   K = 12 and K = 15 columns), warm-up, then a timed f64 solve held to
+   the JAX package's f64 rms, 0.29588193204700636 and 0.2958303685900879
+   px +- 1e-6, in 32 +- 3 and 6 +- 3 iterations, one launch of each path
+   kernel per iteration at the asserted shapes; then a converged solve's
+   cameramodel: unproject (with gradients) over a 60 x 45 grid and
+   project of the result on the card against the CPU, 1e-8 px, and on
+   cahvor_1cam projection_uncertainty (mean-pcam, 1 m, the 30 x 22 grid)
+   against the CPU.
    splined_30x18: the bench's splined model
    (LENSMODEL_SPLINED_STEREOGRAPHIC_order=3_Nx=30_Ny=18_fov_x_deg=150,
    core locked; 84 frames; 34008 measurements, 1586 states; the frame
@@ -117,6 +128,15 @@ nonzero:
    sfm_triangulated x 4: unit 0 held to the sfm_triangulated rms, ending
    on the small-step rule (SFM_BATCH_NITER_RANGE); no batched-Cholesky
    launch.
+   splined x8: 8 splined_30x18 units (unit 0 the splined phase's problem,
+   unit i >= 1 perturbed_oi(seed=1+i) with 0.2 px of board noise) through
+   the batched spline-window assembly: unit 0 held to splined_30x18's
+   gates; one fused launch at (672, 6, 1083) and one back-substitution at
+   (672, 6, 1) per lockstep iteration; units 0, 1 and 7 against their own
+   optimize() in E over ten iterations (1e-10) and at the end of their
+   tails (ftol 1e-10: 1e-9), with b_packed, the residuals and the reduced
+   system's condition number printed (see TRAJECTORY_KW); a mixed batch
+   (the f32 phase's lazy Hessian per unit), unit 0 held to +- 1e-5 px.
    Each prints its wall, lockstep and per-unit iterations, problems per
    second, ms per lockstep iteration, the peak memory and P times the
    single solve's wall.
@@ -124,8 +144,9 @@ nonzero:
    events, and device time per launch from torch.profiler) beside its
    plain version, the PyTorch library call and its bound, and beside the
    launch floor (a one-element torch.add).
-9. profile: one more f64 solve of each configuration, and of the fleet,
-   under torch.profiler (device time by kernel, launches per iteration,
+9. profile: the first 16 iterations of one more f64 solve of each
+   configuration, and of the fleet and the splined fleet, under
+   torch.profiler (device time by kernel, launches per iteration,
    busy share).
 10. the last line: {"ok": true, "device": {...}}.
 
@@ -172,6 +193,19 @@ SPLINED_F64_RMS_TOL = 1e-6
 SPLINED_NITER_RANGE = (80 - 5, 80 + 5)
 SPLINED_MIXED_RMS_TOL = 1e-5
 SPLINED_H32_RMS_TOL = 1e-6
+# cahvor_1cam and cahvore_1cam: the JAX package's converged f64 rms and
+# iterations on the CPU (PERF.md section 2 gives the command)
+CAHVOR_F64_RMS = 0.29588193204700636
+CAHVOR_NITER_RANGE = (32 - 3, 32 + 3)
+CAHVORE_F64_RMS = 0.2958303685900879
+CAHVORE_NITER_RANGE = (6 - 3, 6 + 3)
+CAHVOR_F64_RMS_TOL = 1e-6
+# the [cahvor] phase's grid of project/unproject (mrcal-show-projection-
+# diff's default, 60 x 45), card against CPU in pixels
+CAHVOR_GRID = (60, 45)
+CAHVOR_GRID_PX_TOL = 1e-8
+# and their gradients, relative to the largest entry
+CAHVOR_GRID_GRADIENT_RTOL = 1e-10
 # optimizer_callback on the card against the CPU: x and J to this much of
 # their largest entry
 CALLBACK_REL_TOL = 1e-12
@@ -200,6 +234,10 @@ FLEET_NOISE_PX = 0.2
 FLEET_CHECKED_UNITS = (0, 1, 48, 63)
 RIG16_BATCH_P = 8
 SFM_BATCH_P = 4
+# the splined fleet: 8 wide-angle units of one rig design, units 0, 1 and
+# 7 held to their own optimize()
+SPLINED_FLEET_P = 8
+SPLINED_FLEET_CHECKED_UNITS = (0, 1, 7)
 # a unit's batch result against its own optimize(): E = sum x^2 relative,
 # b_packed absolute (packed units); a batch of one against optimize()
 BATCH_E_RTOL = 1e-9
@@ -215,6 +253,16 @@ BATCH_P1_E_RTOL = 1e-12
 # (~1e-13 relative) stays far below the window's threshold; ftol = 0 lets
 # a unit grind on that noise (1889 iterations on the card).  PERF.md §6.
 DEEP_KW = dict(SOLVE_KW, ftol=1e-10)
+# The splined fleet's knots are resolved only to the normal equations'
+# conditioning: on the card unit 0 alone and in the batch took the same
+# 208 iterations to E 4.3e-13 apart and 7.4e-5 apart in its knots (1.9e-6
+# px in the residuals), and unit 7 after ten iterations was 4.6e-13 apart
+# in E and 2.0e-8 in b_packed (PERF.md).  So its units are held to their
+# own optimize() in E, over their first ten iterations and at the end of
+# their tails; b_packed (knots, and poses with the warp), the residuals
+# and the reduced system's condition number are printed
+TRAJECTORY_KW = dict(SOLVE_KW, max_iterations=10)
+BATCH_TRAJ_E_RTOL = 1e-10
 # sfm_triangulated x 4: the last steps' predicted decrease (~3e-23) is
 # far below E's evaluation noise (~2e-18), so accepting them is a coin
 # flip and the count after the last large step follows roundoff (alone,
@@ -248,6 +296,10 @@ DIFF_DIFFLEN_TOL = 1e-8
 DIFF_RT10_TOL = 1e-9
 UNC_METHODS = ("mean-pcam", "cross-reprojection-rrp-Jfp",
                "cross-reprojection-ccp")
+# the profiled window: each configuration's first 16 iterations (every
+# iteration does the same work; whole solves under the profiler took 448 s
+# of the script's 698 on the card, PERF.md)
+PROFILE_ITERATIONS = 16
 
 
 def fail(msg):
@@ -410,10 +462,16 @@ ODD_SHAPES = [(42, 6, 15), (42, 6, 1)]
 FLEET_SHAPES = [(FLEET_P * 84, 6, 15), (FLEET_P * 84, 6, 1)]
 RIG16_BATCH_SHAPES = [(RIG16_BATCH_P * 40, 6, 285),
                       (RIG16_BATCH_P * 40, 6, 1)]
+SPLINED_FLEET_SHAPES = [(SPLINED_FLEET_P * 84, 6, 1083),
+                        (SPLINED_FLEET_P * 84, 6, 1)]
+# CAHVOR: 9 intrinsics and the warp, K = 9 + 2 + 1; CAHVORE: 12 + 2 + 1,
+# the main path's K = 15
+CAHVOR_SHAPES = [(84, 6, 12)]
 LARGE_SHAPES = [(1 << 20, 3, 4), (1 << 18, 6, 15), (1 << 20, 3, 1),
                 (1 << 18, 6, 1)]
 CHECK_SHAPES = (MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES + SPLINED_SHAPES
                 + ODD_SHAPES + FLEET_SHAPES + RIG16_BATCH_SHAPES
+                + SPLINED_FLEET_SHAPES + CAHVOR_SHAPES
                 + [(131, 6, 33), (131, 3, 4), (0, 6, 15), (70000, 6, 0)]
                 + LARGE_SHAPES)
 
@@ -498,10 +556,12 @@ def time_kernels(torch, card):
         cholesky_factor_solve=(MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
                                + SPLINED_SHAPES + ODD_SHAPES[:1]
                                + FLEET_SHAPES + RIG16_BATCH_SHAPES
+                               + SPLINED_FLEET_SHAPES[:1] + CAHVOR_SHAPES
                                + LARGE_SHAPES),
         cholesky_solve_factored=(MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
                                  + ODD_SHAPES[1:] + FLEET_SHAPES
-                                 + RIG16_BATCH_SHAPES + LARGE_SHAPES),
+                                 + RIG16_BATCH_SHAPES
+                                 + SPLINED_FLEET_SHAPES[1:] + LARGE_SHAPES),
         cholesky_factor=[(84, 6, 0), (1 << 20, 3, 0), (1 << 18, 6, 0)])
     results = {name: [] for name in shapes}
     for name, todo in shapes.items():
@@ -797,6 +857,84 @@ def phase_splined(torch):
         fail(f"[{phase}] f32-H polish rms {rms!r}")
     h32 = dict(rms=rms, niterations_f32=n32, niterations=niter, wall_s=wall)
     f64.update(mixed=mixed, h32=h32)
+    return oi, f64
+
+
+def grid_project_unproject(torch, phase, model):
+    """unproject (with gradients) of the 60 x 45 grid over the model's
+    imager, and project (with gradients) of the CPU's unprojection, on
+    the card against the CPU: each in pixels (an unprojection by where
+    the CPU projects it), the gradients relative to their largest
+    entry."""
+    from mrcal_tpu_torch import project, sample_imager, unproject
+    lens, intr = model.intrinsics()
+    q = sample_imager(*CAHVOR_GRID, *model.imagersize(), device="cpu")
+    u_g, wall = _sync_time(torch, lambda: unproject(q, lens, intr,
+                                                   get_gradients=True))
+    u_c = unproject(q, lens, intr, get_gradients=True, device="cpu")
+    p_g = project(u_c[0], lens, intr, get_gradients=True)
+    p_c = project(u_c[0], lens, intr, get_gradients=True, device="cpu")
+    if not all(t.device.type == "cuda" and torch.isfinite(t).all()
+               for t in tuple(u_g) + tuple(p_g)):
+        fail(f"[{phase}] project/unproject: not finite on the card")
+
+    def px(v):
+        return project(v, lens, intr, device="cpu")
+    out = dict(
+        unproject_px=float((px(u_g[0].cpu()) - px(u_c[0])).abs().max()),
+        project_px=float((p_g[0].cpu() - p_c[0]).abs().max()),
+        gradients_rel=max(rel_err(g.cpu(), c) for g, c in
+                          zip(tuple(u_g[1:]) + tuple(p_g[1:]),
+                              tuple(u_c[1:]) + tuple(p_c[1:]))),
+        roundtrip_px=float((px(u_c[0]) - q).abs().max()),
+        unproject_card_s=wall)
+    log(f"[{phase}] {lens} over the {CAHVOR_GRID[0]} x {CAHVOR_GRID[1]} "
+        f"grid (unproject with gradients on the card {wall * 1e3:.1f} ms), "
+        f"card vs CPU: unproject {out['unproject_px']:.3e} px, "
+        f"project {out['project_px']:.3e} px (tol "
+        f"{CAHVOR_GRID_PX_TOL:g}), gradients {out['gradients_rel']:.3e} of "
+        f"the largest entry (tol {CAHVOR_GRID_GRADIENT_RTOL:g}); CPU round "
+        f"trip {out['roundtrip_px']:.3e} px")
+    if not (out["unproject_px"] <= CAHVOR_GRID_PX_TOL
+            and out["project_px"] <= CAHVOR_GRID_PX_TOL
+            and out["gradients_rel"] <= CAHVOR_GRID_GRADIENT_RTOL):
+        fail(f"[{phase}] project/unproject: the card and the CPU disagree")
+    return out
+
+
+def phase_cahvor(torch, phase):
+    """cahvor_1cam or cahvore_1cam in f64, held to the JAX package's rms
+    and iterations, with the fused kernel at K = 12 (CAHVOR) or 15
+    (CAHVORE) and one back-substitution per iteration; then a solve's
+    cameramodel: project/unproject over the grid, and on cahvor_1cam
+    projection_uncertainty (mean-pcam at 1 m on the 30 x 22 grid), card
+    against CPU."""
+    from mrcal_tpu_torch import cameramodel, problems, sample_imager, unproject
+    from mrcal_tpu_torch.optimize import spec_from_inputs
+    cahvor = phase == "cahvor_1cam"
+    oi, f64 = timed_solve(
+        torch, phase, problems.perturbed_oi(getattr(problems, phase)(),
+                                            seed=1),
+        (32935, 515) if cahvor else (32938, 518),
+        CAHVOR_F64_RMS if cahvor else CAHVORE_F64_RMS, CAHVOR_F64_RMS_TOL,
+        CAHVOR_NITER_RANGE if cahvor else CAHVORE_NITER_RANGE)
+    K = (CAHVOR_SHAPES if cahvor else MAIN_SHAPES)[0][2]
+    with KernelShapes() as ks:
+        solved = _solved(oi)
+    shapes = {k: sorted(set(v)) for k, v in ks.shapes.items()}
+    log(f"[{phase}] the kernels ran at {shapes}")
+    if f64["fused_K"] != K or shapes != {
+            "cholesky_factor_solve": [(84, 6, K)],
+            "cholesky_solve_factored": [(84, 6, 1)]}:
+        fail(f"[{phase}] the kernels ran at {shapes}, K {f64['fused_K']}")
+    model = cameramodel(optimization_inputs=solved, icam_intrinsics=0)
+    f64["grid"] = grid_project_unproject(torch, phase, model)
+    if cahvor:
+        v = unproject(sample_imager(UNC_GRID, None, *model.imagersize()),
+                      *model.intrinsics(), normalize=True)
+        f64["uncertainty"] = uncertainty_call(
+            torch, phase, model, v, spec_from_inputs(**solved).Nstate,
+            "mean-pcam", False, "covariance")
     return oi, f64
 
 
@@ -1184,6 +1322,98 @@ def phase_batch_sfm(torch, single_wall):
     check_batch_launches(phase, summary, None)
     check_unit0(phase, stats, SFM_F64_RMS, SFM_F64_RMS * SFM_F64_RMS_REL_TOL,
                 SFM_BATCH_NITER_RANGE)
+    return units, summary
+
+
+def splined_condition(torch, oi, b_packed):
+    """The condition number of a splined problem's reduced camera system
+    (Hcc less the frames' Schur complement, undamped) at b_packed: how
+    far roundoff in the normal equations moves the knots."""
+    from mrcal_tpu_torch.convert import from_reference
+    from mrcal_tpu_torch.optimize.solver import build_normal_equations
+    spec, arrays, b = from_reference(oi, b_packed, device="cuda")
+    static_idx = dict(board=oi["indices_frame_camintrinsics_camextrinsics"],
+                      point=np.zeros((0, 3), np.int64))
+    with torch.no_grad():
+        ne = build_normal_equations(spec, arrays, static_idx)(b, arrays)
+        Nf = spec.Nframes
+        Cf = ne["Cf"][:Nf]
+        H = ne["Hcc"] - torch.einsum("fic,fid->cd", Cf, torch.linalg.solve(
+            ne["Hff"][:Nf], Cf))
+        eig = torch.linalg.eigvalsh(H)
+    return float(eig[-1] / eig[0])
+
+
+def phase_batch_splined(torch, single_wall):
+    """8 splined_30x18 units in lockstep through the batched spline-window
+    assembly: the frame blocks at (672, 6, 1083), units 0, 1 and 7 held
+    to their own optimize(), and a mixed batch (lazy-H per problem)."""
+    from mrcal_tpu_torch import optimize, problems
+    from mrcal_tpu_torch.optimize import spec_from_inputs
+    from mrcal_tpu_torch.optimize.solver import _lazy_h_K
+    phase = "batch splined x8"
+    units = batch_units(problems.splined_30x18(), SPLINED_FLEET_P,
+                        FLEET_NOISE_PX)
+    spec = spec_from_inputs(**units[0])
+    if (spec.Nmeasurements, spec.Nstate) != (34008, 1586):
+        fail(f"[{phase}] the units have the wrong shape")
+    _, stats, summary = timed_batch(torch, phase, units, single_wall)
+    check_batch_launches(phase, summary, SPLINED_FLEET_SHAPES)
+    check_unit0(phase, stats, SPLINED_F64_RMS, SPLINED_F64_RMS_TOL,
+                SPLINED_NITER_RANGE)
+
+    # the batch against units solved alone: their first ten iterations,
+    # and to the end of their tails
+    nint = spec.num_states_intrinsics
+    _, stats10, _ = timed_batch(torch, phase, units, single_wall,
+                                solve_kw=TRAJECTORY_KW)
+    _, stats_deep, deep = timed_batch(torch, phase, units, single_wall,
+                                      solve_kw=DEEP_KW)
+    alone = {}
+    for i in SPLINED_FLEET_CHECKED_UNITS:
+        s10 = optimize(precision="f64", **TRAJECTORY_KW, **_copy(units[i]))
+        s = optimize(precision="f64", **DEEP_KW, **_copy(units[i]))
+        a = alone[i] = dict(
+            E_rel_10=abs(_E(stats10[i]) - _E(s10)) / _E(s10),
+            E_rel=abs(_E(stats_deep[i]) - _E(s)) / _E(s),
+            niterations=s["niterations"],
+            niterations_batch=stats_deep[i]["niterations"])
+        for tag, x, y in (("_10", stats10[i], s10), ("", stats_deep[i], s)):
+            d_b = np.abs(x["b_packed"] - y["b_packed"])
+            a.update({f"b_knots{tag}": float(d_b[:nint].max()),
+                      f"b_poses{tag}": float(d_b[nint:].max()),
+                      f"x_px{tag}": float(np.abs(x["x"] - y["x"]).max())})
+        log(f"[{phase}] unit {i} alone: 10 iterations E rel diff "
+            f"{a['E_rel_10']:.3e} (tol {BATCH_TRAJ_E_RTOL:g}); ftol 1e-10: "
+            f"{s['niterations']} iterations (batch "
+            f"{stats_deep[i]['niterations']}), E rel diff {a['E_rel']:.3e} "
+            f"(tol {BATCH_E_RTOL:g}); printed, at 10 iterations and at the "
+            f"end: b_packed knots {a['b_knots_10']:.3e}, {a['b_knots']:.3e}, "
+            f"poses and warp {a['b_poses_10']:.3e}, {a['b_poses']:.3e}, "
+            f"residuals {a['x_px_10']:.3e}, {a['x_px']:.3e} px")
+        if not (a["E_rel_10"] <= BATCH_TRAJ_E_RTOL
+                and a["E_rel"] <= BATCH_E_RTOL):
+            fail(f"[{phase}] unit {i}: the batch and optimize() disagree")
+    summary["reduced_system_condition_unit0"] = splined_condition(
+        torch, units[0], stats_deep[0]["b_packed"])
+    log(f"[{phase}] unit 0 at its end: the reduced camera system (the knots "
+        f"and the warp, Schur-reduced, undamped) has condition number "
+        f"{summary['reduced_system_condition_unit0']:.3e}")
+
+    # mixed: the f32 phase with the lazy Hessian, each unit its own refresh
+    lazy_K = _lazy_h_K(spec, torch.float32, torch.device("cuda"))
+    _, stats_mx, mixed = timed_batch(torch, phase, units, single_wall,
+                                     precision="mixed")
+    rms0 = stats_mx[0]["rms_reproj_error__pixels"]
+    diffs = [a["rms_reproj_error__pixels"] - b["rms_reproj_error__pixels"]
+             for a, b in zip(stats_mx, stats)]
+    log(f"[{phase}] mixed (lazy-H K = {lazy_K}): unit 0 rms {rms0!r} px "
+        f"(gate {SPLINED_F64_RMS!r} +- {SPLINED_MIXED_RMS_TOL:g}); units' "
+        f"rms minus f64 rms {', '.join(f'{d:+.2e}' for d in diffs)} px")
+    if lazy_K != 4 or not abs(rms0 - SPLINED_F64_RMS) <= SPLINED_MIXED_RMS_TOL:
+        fail(f"[{phase}] mixed unit 0 rms {rms0!r} (lazy K {lazy_K})")
+    mixed.update(lazy_K=lazy_K, rms_diff_from_f64=diffs)
+    summary.update(deep_ftol_1e_10=deep, alone=alone, mixed=mixed)
     return units, summary
 
 
@@ -1608,13 +1838,14 @@ def phase_uncertainty(torch, oi_main, oi_4cam, oi_splined):
                 conditioning=conditioning, wall_s=wall)
 
 
-def phase_profile(torch, phase, oi, wall_unprofiled):
-    """Where the time of the f64 solve goes: one more solve under
-    torch.profiler; device time by kernel, launches per iteration, the
-    device's busy share of the (unprofiled) timed solve, and the device
-    time per launch of each batched-Cholesky kernel.  oi: one problem, or
-    a list of them, solved as one batch (iterations are then the lockstep
-    iterations)."""
+def phase_profile(torch, phase, oi, ms_per_iteration):
+    """Where the time of the f64 solve goes: its first PROFILE_ITERATIONS
+    iterations once more, under torch.profiler; device time by kernel,
+    launches per iteration, the device's busy share of the unprofiled
+    timed solve's wall over as many iterations (ms_per_iteration each),
+    and the device time per launch of each batched-Cholesky kernel.  oi:
+    one problem, or a list of them, solved as one batch (iterations are
+    then the lockstep iterations)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from mrcal_tpu_torch import optimize, optimize_batch
@@ -1623,11 +1854,12 @@ def phase_profile(torch, phase, oi, wall_unprofiled):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        kw = dict(SOLVE_KW, max_iterations=PROFILE_ITERATIONS)
         if isinstance(oi, list):
             niter = max(s["niterations"] for s in optimize_batch(
-                [_copy(u) for u in oi], precision="f64", **SOLVE_KW))
+                [_copy(u) for u in oi], precision="f64", **kw))
         else:
-            niter = optimize(precision="f64", **SOLVE_KW,
+            niter = optimize(precision="f64", **kw,
                              **_copy(oi))["niterations"]
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1639,8 +1871,8 @@ def phase_profile(torch, phase, oi, wall_unprofiled):
         f"{wall * 1e3:.1f} ms wall under the profiler; {nlaunch} device "
         "kernels "
         f"({nlaunch / niter:.0f} per iteration), {busy_ms:.2f} ms device "
-        f"busy = {busy_ms / (wall_unprofiled * 1e3) * 100:.1f} % of the "
-        f"unprofiled solve's wall")
+        f"busy = {busy_ms / (ms_per_iteration * niter) * 100:.1f} % of "
+        f"the unprofiled solve's wall over {niter} iterations")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)
     for e in top[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
@@ -1659,7 +1891,7 @@ def phase_profile(torch, phase, oi, wall_unprofiled):
                             if n else None)
     return dict(iterations=niter, kernels=nlaunch,
                 kernels_per_iteration=nlaunch / niter, device_busy_ms=busy_ms,
-                device_busy_share=busy_ms / (wall_unprofiled * 1e3)), \
+                device_busy_share=busy_ms / (ms_per_iteration * niter)), \
         per_launch
 
 
@@ -1687,8 +1919,11 @@ def main():
     for name, phase in (("rig16cam", phase_rig16cam),
                         ("sfm_triangulated", phase_sfm),
                         ("opencv8_4cam", phase_4cam),
-                        ("splined_30x18", phase_splined)):
-        others[name] = phase(torch)
+                        ("splined_30x18", phase_splined),
+                        ("cahvor_1cam", phase_cahvor),
+                        ("cahvore_1cam", phase_cahvor)):
+        others[name] = (phase(torch, name) if phase is phase_cahvor
+                        else phase(torch))
         stamp(name)
     # loopback only for the process groups' own sockets
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
@@ -1705,7 +1940,9 @@ def main():
             ("rig16cam_x8", phase_batch_rig16,
              others["rig16cam"][1]["wall_s"]),
             ("sfm_triangulated_x4", phase_batch_sfm,
-             others["sfm_triangulated"][1]["wall_s"])):
+             others["sfm_triangulated"][1]["wall_s"]),
+            ("splined_fleet_8x", phase_batch_splined,
+             others["splined_30x18"][1]["wall_s"])):
         batches[name] = phase(torch, wall)
         stamp(name)
     callbacks = {name: phase_callback(torch, name, oi) for name, oi in (
@@ -1727,16 +1964,18 @@ def main():
     entries, main_path["launch_floor"] = time_kernels(torch, card)
     stamp("kernel times")
     main_path["profile"], per_launch = phase_profile(
-        torch, "main", oi_main, main_path["f64"]["wall_s"])
+        torch, "main", oi_main, main_path["f64"]["ms_per_iteration"])
     stamp("main profile")
     for name, (oi, summary) in others.items():
         summary["profile"], _ = phase_profile(torch, name, oi,
-                                              summary["wall_s"])
+                                              summary["ms_per_iteration"])
         stamp(f"{name} profile")
-    fleet, summary = batches["fleet_64x_opencv8_1cam"]
-    summary["profile"], _ = phase_profile(torch, "batch fleet", fleet,
-                                          summary["wall_s"])
-    stamp("batch fleet profile")
+    for name, phase in (("fleet_64x_opencv8_1cam", "batch fleet"),
+                        ("splined_fleet_8x", "batch splined x8")):
+        units, summary = batches[name]
+        summary["profile"], _ = phase_profile(
+            torch, phase, units, summary["ms_per_lockstep_iteration"])
+        stamp(f"{phase} profile")
     for e in entries:
         e["launches"] = main_path["f64"]["launches"][e["name"]]
         e["launches_by_path"] = dict(

@@ -8,9 +8,12 @@ step with its hand-written Hopper batched-Cholesky kernel (``ops/``), the
 LM loop, ``optimize()`` (with ``check_gradient``), batched solves
 (``optimize_batch``, ``pad_problems_to_common_structure``),
 ``optimizer_callback`` with its sparse Jacobian, the pose functions,
-``project``/``unproject``, ``cameramodel``, ``CHOLMOD_factorization`` and
-the uncertainty of a calibration (``projection_uncertainty``,
-``projection_diff`` and the rest of ``model_analysis``).
+``project``/``unproject``, ``cameramodel`` (with the JPL .cahvor format),
+``CHOLMOD_factorization``, the uncertainty of a calibration
+(``projection_uncertainty``, ``projection_diff`` and the rest of
+``model_analysis``) and the helpers of ``utils``.  Every lens model of the
+JAX package projects: the parametric ones, CAHVOR, CAHVORE and the splined
+one.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.  Everything is float64 unless a caller asks for float32.
@@ -73,6 +76,21 @@ from .triangulation import (  # noqa: F401
 from .utils import (  # noqa: F401
     align_procrustes_points_Rt01,
     align_procrustes_vectors_R01,
+    apply_homography,
+    close_contour,
+    hypothesis_board_corner_positions,
+    ingest_packed_state,
+    mapping_file_framenocameraindex,
+    measurements_board,
+    measurements_point,
+    plotoptions_measurement_boundaries,
+    plotoptions_state_boundaries,
+    polygon_difference,
+    residuals_board,
+    residuals_point,
     sample_imager,
     sample_imager_unproject,
+    sorted_eig,
+    write_point_cloud_as_ply,
 )
+from .cahvor import read_transforms  # noqa: F401

@@ -9,8 +9,9 @@ optimization_inputs blob (np.savez_compressed, then base85), the same
 bytes as the JAX package writes, so a model written by either package
 reads back in the other with the same arrays.  A model written after a
 solve embeds the complete optimization_inputs, from which the
-uncertainty is computed.  The reader also takes OpenCV/ROS yaml and json;
-the JPL .cahvor format is not ported yet (ROADMAP queue 1, CAHVOR).
+uncertainty is computed.  The reader also takes OpenCV/ROS yaml and json
+and the JPL .cahvor format (``cahvor.py``), which write(cahvor=True) and
+a file name ending in .cahv, .cahvor or .cahvore write.
 
 The pose conversions run on the CPU: a 6-vector does not go to the card.
 """
@@ -25,10 +26,6 @@ import numpy as np
 from . import poseutils as _pose
 from .lensmodels import lensmodel_metadata_and_config, lensmodel_num_params
 from .optimize.layout import corresponding_icam_extrinsics
-
-_CAHVOR_NOT_PORTED = "the .cahvor format is not ported yet (ROADMAP " \
-    "queue 1, CAHVOR)"
-
 
 def _host(fn, *args):
     """A pose function of the port on the CPU, returning numpy."""
@@ -296,8 +293,8 @@ class cameramodel:
     # ------------------------------------------------------------------ I/O
     def _tryread(self, modelstring, what):
         """Parse a model in a supported on-disk format: native
-        .cameramodel, or OpenCV/ROS yaml/json (camera_calibration_parsers /
-        sensor_msgs/CameraInfo)."""
+        .cameramodel, OpenCV/ROS yaml/json (camera_calibration_parsers /
+        sensor_msgs/CameraInfo), or JPL .cahvor."""
         errors = {}
         try:
             self._read_into_self(modelstring)
@@ -309,7 +306,12 @@ class cameramodel:
             return
         except CameramodelParseException as e:
             errors["yaml_or_json"] = e
-        errors["cahvor"] = _CAHVOR_NOT_PORTED
+        try:
+            from . import cahvor
+            self._copy_from(cahvor.read_from_string(modelstring))
+            return
+        except Exception as e:
+            errors["cahvor"] = e
         raise Exception(f"Couldn't parse {what}. Errors for each attempt: "
                         f"{errors}")
 
@@ -400,12 +402,13 @@ class cameramodel:
         f.write("}\n")
 
     def write(self, f, *, note=None, cahvor=False):
-        if cahvor or (isinstance(f, str)
-                      and re.match(r".*\.cahv(or(e)?)?$", f)):
-            raise NotImplementedError(_CAHVOR_NOT_PORTED)
         if isinstance(f, str):
             with open(f, "w") as fh:
-                self._write(fh, note)
+                self.write(fh, note=note, cahvor=cahvor or bool(
+                    re.match(r".*\.cahv(or(e)?)?$", f)))
+        elif cahvor:
+            from . import cahvor as _cahvor
+            _cahvor.write(f, self, note)
         else:
             self._write(f, note)
 

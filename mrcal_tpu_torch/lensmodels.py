@@ -7,7 +7,7 @@ and the OPENCV models keep OpenCV's order k1,k2,p1,p2[,k3[,k4,k5,k6
 intrinsics)`` that broadcasts over leading dimensions and is
 differentiable by autograd.  ``unproject_core`` is its inverse: closed
 forms for PINHOLE, STEREOGRAPHIC, LONLAT and LATLON, a fixed-length
-Gauss-Newton solve for the OPENCV and splined models.
+Gauss-Newton solve for the OPENCV, CAHVOR(E) and splined models.
 
 LENSMODEL_SPLINED_STEREOGRAPHIC_order=O_Nx=NX_Ny=NY_fov_x_deg=F is the
 core plus 2*Nx*Ny B-spline control points, laid out (Ny, Nx, 2) with the
@@ -15,10 +15,10 @@ x surface interleaved with the y surface: q = (u + deltau(u)) * f + c,
 u the normalized stereographic projection, deltau a uniform B-spline
 surface of order 2 or 3 over the knot grid.
 
-The registry knows every family, but the port projects and unprojects only
-the parametric ones (PINHOLE, STEREOGRAPHIC, LONLAT, LATLON,
-OPENCV4/5/8/12) and the splined one; CAHVOR and CAHVORE raise
-``NotImplementedError``.
+LENSMODEL_CAHVOR is the core plus alpha, beta (the optical axis) and r0,
+r1, r2 (radial terms); LENSMODEL_CAHVORE_linearity=L adds e0, e1, e2 (the
+entrance pupil's motion along the axis), a noncentral model whose
+unprojection here is central, as the JAX package's is.
 """
 
 import math
@@ -51,19 +51,6 @@ _CONFIG_FIELDS = {
     "LENSMODEL_SPLINED_STEREOGRAPHIC":
         [("order", int), ("Nx", int), ("Ny", int), ("fov_x_deg", int)],
 }
-
-# families whose projection the port has
-PORTED_FAMILIES = ("LENSMODEL_PINHOLE", "LENSMODEL_STEREOGRAPHIC",
-                   "LENSMODEL_LONLAT", "LENSMODEL_LATLON",
-                   "LENSMODEL_OPENCV4", "LENSMODEL_OPENCV5",
-                   "LENSMODEL_OPENCV8", "LENSMODEL_OPENCV12",
-                   "LENSMODEL_SPLINED_STEREOGRAPHIC")
-
-_NOT_PORTED = {
-    "LENSMODEL_CAHVOR": "ROADMAP queue 1 (CAHVOR projection)",
-    "LENSMODEL_CAHVORE": "ROADMAP queue 1 (CAHVORE projection)",
-}
-
 
 @dataclass(frozen=True)
 class LensModel:
@@ -146,8 +133,7 @@ def parse_lensmodel(name):
 
 def supported_lensmodels():
     """Every lens model family, configured families with a placeholder
-    configuration, as mrcal.supported_lensmodels() lists them.  CAHVOR and
-    CAHVORE parse but do not project yet (``require_ported``)."""
+    configuration, as mrcal.supported_lensmodels() lists them."""
     return tuple(fam + "".join(f"_{f}=..." for f, _ in
                                _CONFIG_FIELDS.get(fam, ()))
                  for fam in _FAMILIES)
@@ -163,15 +149,6 @@ def lensmodel_metadata_and_config(lensmodel):
     for fname, _ in _CONFIG_FIELDS.get(lm.family, []):
         out[fname] = getattr(lm, fname)
     return out
-
-
-def require_ported(lensmodel):
-    """Raise NotImplementedError for a family the port does not project."""
-    lm = parse_lensmodel(lensmodel)
-    if lm.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{lm.name} is not ported yet: {_NOT_PORTED[lm.family]}")
-    return lm
 
 
 # ----------------------------------------------------------------------------
@@ -249,6 +226,70 @@ def _project_opencv_core(v, intrinsics, nparams):
         xd = xd + d[..., 8] * r2 + d[..., 9] * r4
         yd = yd + d[..., 10] * r2 + d[..., 11] * r4
     return torch.stack([xd * fx + cx, yd * fy + cy], dim=-1)
+
+
+# Newton iterations of CAHVORE's off-axis angle: a fixed count, the JAX
+# package's (it converges in ~3)
+CAHVORE_NEWTON_ITERATIONS = 20
+
+
+def _project_cahvor_core(v, intrinsics, linearity=None):
+    """CAHVOR, and CAHVORE when linearity is not None.  Distortions after
+    the core: alpha, beta, r0, r1, r2 [, e0, e1, e2]; the optical axis o
+    = (sin alpha cos beta, sin beta, cos alpha cos beta).  CAHVOR moves
+    the point off the axis by mu = r0 + r1 tau + r2 tau^2, tau = |p|^2 /
+    (p.o)^2 - 1.  CAHVORE solves for the off-axis angle theta of the ray
+    through the moving entrance pupil by Newton's method from atan2(l,
+    zeta), warps it by the linearity (chi = sin(L theta)/L, tan(L theta)/L
+    or theta) and scales the off-axis part by mu + 1, mu = r0 + r1 chi^2 +
+    r2 chi^4; a point within 1e-8 of the axis passes unchanged.  Then the
+    pinhole projection."""
+    alpha = intrinsics[..., 4]
+    beta = intrinsics[..., 5]
+    r0 = intrinsics[..., 6]
+    r1 = intrinsics[..., 7]
+    r2 = intrinsics[..., 8]
+    cb = torch.cos(beta)
+    o = torch.stack([torch.sin(alpha) * cb, torch.sin(beta),
+                     torch.cos(alpha) * cb], dim=-1)
+    if linearity is None:
+        omega = torch.sum(v * o, dim=-1)
+        tau = torch.sum(v * v, dim=-1) / (omega * omega) - 1.0
+        mu = r0 + tau * (r1 + tau * r2)
+        p_dist = v + mu[..., None] * (v - omega[..., None] * o)
+        return _project_pinhole_core(p_dist, intrinsics)
+
+    e0 = intrinsics[..., 9]
+    e1 = intrinsics[..., 10]
+    e2 = intrinsics[..., 11]
+    zeta = torch.sum(v * o, dim=-1)
+    ll = v - zeta[..., None] * o
+    l = torch.linalg.vector_norm(ll, dim=-1)
+    theta = torch.atan2(l, zeta)
+    for _ in range(CAHVORE_NEWTON_ITERATIONS):
+        sth = torch.sin(theta)
+        cth = torch.cos(theta)
+        th2 = theta * theta
+        th3 = theta * th2
+        th4 = theta * th3
+        upsilon = (zeta * cth + l * sth
+                   + (cth - 1.0) * (e0 + e1 * th2 + e2 * th4)
+                   - (theta - sth) * (2.0 * e1 * theta + 4.0 * e2 * th3))
+        theta = theta - (zeta * sth - l * cth
+                         - (theta - sth) * (e0 + e1 * th2 + e2 * th4)
+                         ) / upsilon
+    if linearity < -1e-15:
+        chi = torch.sin(theta * linearity) / linearity
+    elif linearity > 1e-15:
+        chi = torch.tan(theta * linearity) / linearity
+    else:
+        chi = theta
+    chi2 = chi * chi
+    chi_safe = torch.where(torch.abs(chi) < 1e-12, 1.0, chi)
+    mu = r0 + r1 * chi2 + r2 * chi2 * chi2
+    p_dist = (l / chi_safe)[..., None] * o + (mu + 1.0)[..., None] * ll
+    p_dist = torch.where((theta > 1e-8)[..., None], p_dist, v)
+    return _project_pinhole_core(p_dist, intrinsics)
 
 
 # --- splined stereographic ---------------------------------------------------
@@ -369,10 +410,14 @@ def _project_splined_core(v, intrinsics, lm):
 def project_core(v, intrinsics, lensmodel):
     """q = project(v).  v: (...,3), intrinsics: (...,Nparams) -> q: (...,2).
     Family dispatch is on the (python) lens model."""
-    lm = require_ported(lensmodel)
+    lm = parse_lensmodel(lensmodel)
     fam = lm.family
     if fam == "LENSMODEL_SPLINED_STEREOGRAPHIC":
         return _project_splined_core(v, intrinsics, lm)
+    if fam == "LENSMODEL_CAHVOR":
+        return _project_cahvor_core(v, intrinsics)
+    if fam == "LENSMODEL_CAHVORE":
+        return _project_cahvor_core(v, intrinsics, lm.linearity)
     if fam == "LENSMODEL_PINHOLE":
         return _project_pinhole_core(v, intrinsics)
     if fam == "LENSMODEL_STEREOGRAPHIC":
@@ -443,7 +488,7 @@ def unproject_core(q, intrinsics, lensmodel):
     """v = unproject(q).  q: (...,2), intrinsics: (...,Nparams) -> (...,3).
 
     The closed-form models keep the reference's non-unit conventions
-    (PINHOLE: v_z = 1).  The OPENCV and splined models solve
+    (PINHOLE: v_z = 1).  The OPENCV, CAHVOR(E) and splined models solve
     project(v(u)) = q for u
     in normalized stereographic coordinates by Gauss-Newton, starting from
     the stereographic guess with the same core, for a fixed number of
@@ -451,7 +496,7 @@ def unproject_core(q, intrinsics, lensmodel):
     Every point iterates at once; the rows of its 2x2 Jacobian come from
     two reverse-mode products (two cotangents), so the result carries no
     autograd graph."""
-    lm = require_ported(lensmodel)
+    lm = parse_lensmodel(lensmodel)
     if lm.family in _CLOSED_FORM_UNPROJECT:
         return _CLOSED_FORM_UNPROJECT[lm.family](q, intrinsics)
 

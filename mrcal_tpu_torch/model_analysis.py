@@ -43,7 +43,7 @@ import torch
 
 from ._config import resolve_device
 from .factorization import _DENSE_NSTATE_MAX, CHOLMOD_factorization
-from .lensmodels import project_core, require_ported
+from .lensmodels import parse_lensmodel, project_core
 from .optimize.jacobian import _csr, _jacobian_coo
 from .optimize.layout import (camera_extrinsics_indices, normalize_inputs,
                               spec_from_inputs)
@@ -78,7 +78,6 @@ class _Solved:
                               "cannot compute uncertainty")
         self.kw = normalize_inputs(optimization_inputs)
         self.spec = spec_from_inputs(**self.kw)
-        require_ported(self.spec.lensmodel)
         self.arrays = arrays_from_inputs(self.kw, device=device)
         self.b = pack_params(params_from_arrays(self.arrays), self.spec)
         self.dense = self.spec.Nstate <= _DENSE_NSTATE_MAX
@@ -451,7 +450,7 @@ def _intrinsics(model, device):
     model)."""
     lens, intr = model.intrinsics()
     return (torch.as_tensor(intr, dtype=torch.float64, device=device),
-            require_ported(lens))
+            parse_lensmodel(lens))
 
 
 def _warn(what, e):

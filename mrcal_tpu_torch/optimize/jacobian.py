@@ -19,7 +19,6 @@ import scipy.sparse
 import torch
 
 from .._config import resolve_device
-from ..lensmodels import require_ported
 from .layout import ProblemSpec, normalize_inputs, spec_from_inputs
 from .residuals import (arrays_from_inputs, pack_params, params_from_arrays,
                         residuals_from_packed, split_packed_state)
@@ -81,9 +80,9 @@ def _jacobian_coo(b, arrays, spec: ProblemSpec):
         idx = arrays["indices_board"].repeat_interleave(rows_of.HW, dim=0)
         rows = arange(len(idx) * 2).reshape(-1, 2, 1)
         if _splined_fast_path_ok(spec):
-            _, J, Jw, wincols, _ = rows_of.splined_board(
-                {k: v[0] for k, v in pk1.items()}, arrays)
-            emit(rows, i_intr0 + wincols[:, None, :], Jw)
+            _, J, Jw, wincols, _ = rows_of.splined_board(pk1, arrays1)
+            J = {k: one(v) for k, v in J.items()}          # (N, 2, n)
+            emit(rows, i_intr0 + one(wincols)[:, None, :], one(Jw))
         else:
             _, J = rows_of.board(pk1, arrays1)
             J = {k: one(v) for k, v in J.items()}          # (N, 2, n)
@@ -185,7 +184,6 @@ def optimizer_callback(no_jacobian=False, *, device=None, **kw):
     device = resolve_device(device)
     kw = normalize_inputs(kw)
     spec = spec_from_inputs(**kw)
-    require_ported(spec.lensmodel)
     arrays = arrays_from_inputs(kw, device=device)
     b = pack_params(params_from_arrays(arrays), spec)
     with torch.no_grad():
@@ -224,11 +222,12 @@ def _fd_column_errors(spec, arrays, b, cols):
         yield int(j), err, scale
 
 
-def _check_gradient_report(spec, arrays, b):
+def _check_gradient_report(spec, arrays, b, verbose=False):
     """optimize(check_gradient=True): the Jacobian against central finite
     differences on every state column (a random FD_COLUMNS_MAX of them on
     larger problems).  b: the packed state (a tensor).  Returns a stats
-    dict with the worst per-column relative error."""
+    dict with the worst per-column relative error; verbose prints each
+    column's error as the JAX package does."""
     cols = np.arange(spec.Nstate)
     if spec.Nstate > FD_COLUMNS_MAX:
         cols = np.random.default_rng(0).permutation(
@@ -236,6 +235,9 @@ def _check_gradient_report(spec, arrays, b):
     worst = 0.0
     worst_col = -1
     for j, err, scale in _fd_column_errors(spec, arrays, _np(b), cols):
+        if verbose:
+            print(f"check_gradient: ivar {j}: max |J_ad - J_num| = "
+                  f"{err:.3e} (relative {err / scale:.3e})")
         if err / scale > worst:
             worst, worst_col = err / scale, j
     return dict(check_gradient=True,

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .._config import DEFAULT_DTYPE, resolve_device
-from ..lensmodels import project_core, require_ported, unproject_core
+from ..lensmodels import project_core, unproject_core
 from ..poseutils import (_compose_rt2, _invert_rt, _rotate_point_r,
                          _transform_point_rt)
 from ..triangulation import _triangulated_error
@@ -511,7 +511,6 @@ def drt_cross_reprojection__dbpacked(icam_intrinsics=0, *, device=None,
     device = resolve_device(device)
     kw = normalize_inputs(kw)
     spec = spec_from_inputs(**kw)
-    require_ported(spec.lensmodel)
     arrays = arrays_from_inputs(kw, device=device)
     b = pack_params(params_from_arrays(arrays), spec)
     return _drt_cross(spec, arrays, b, icam_intrinsics).cpu().numpy()

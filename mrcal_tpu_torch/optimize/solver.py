@@ -23,11 +23,12 @@ splined models:
     precision modes, the write-back and the check_gradient mode of
     ``optimize()``
   - batched solves (``optimize_batch``, ``lm_solve_batch``,
-    ``pad_problems_to_common_structure``): the normal equations and the
-    Schur step take a leading problem axis, so P problems of one
-    structure iterate in lockstep with one kernel launch per block type
-    for all of them; ``optimize()`` runs through the same code as a batch
-    of one
+    ``pad_problems_to_common_structure``): the normal equations (the
+    spline-window assembly too) and the Schur step take a leading problem
+    axis, so P problems of one structure iterate in lockstep with one
+    kernel launch per block type for all of them, each with its own
+    lazy-Hessian refresh count; ``optimize()`` runs through the same code
+    as a batch of one
 """
 
 import time
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from .._config import DEFAULT_DTYPE, resolve_device
-from ..lensmodels import (bspline_weights, project_core, require_ported,
+from ..lensmodels import (bspline_weights, project_core,
                           splined_window_index, stereographic_uv)
 from ..ops.batched_cholesky import (cholesky_factor_solve,
                                    cholesky_solve_factored)
@@ -58,11 +59,6 @@ _LAM_FLOOR = 1e-11
 # effective damping floor of f32 normal equations: their diagonal carries
 # ~eps32 relative noise, and H + lam*diag(H) goes indefinite below this
 _F32_LAM_FLOOR = 4e-7
-
-_NOT_PORTED_OPTIONS = {
-    "verbose": "ROADMAP queue 1 (verbose per-iteration output)",
-}
-
 
 # ----------------------------------------------------------------------------
 # camera-system ("c") layout: [intrinsics-state | extrinsics | warp], packed
@@ -191,20 +187,21 @@ def _make_board_corner_fn(spec: ProblemSpec, consts):
 def _make_splined_corner_fn(spec: ProblemSpec, consts):
     """Board residual of a flat batch of corners of a splined model with
     the core locked, as a function of the pose blocks alone: (blocks,
-    corner grid xy, observed corners, core (N, 4), control points
-    (Nci, Ny, Nx, 2), cameras (N,)) -> (N, 2), and as aux the window
-    origins (ix0, iy0) and the basis weights (wx, wy) (N, R), without
-    gradient.  The window origin carries no gradient; the local
+    corner grid xy, observed corners, core (N, 4), control points of
+    every camera of every problem (P*Nci, Ny, Nx, 2), each corner's
+    camera among them (N,), the fixed warp (N, 2)) -> (N, 2), and as aux
+    the window origins (ix0, iy0) and the basis weights (wx, wy) (N, R),
+    without gradient.  The window origin carries no gradient; the local
     coordinates within it carry the pose's."""
     lm = spec.lensmodel
     R = lm.order + 1
 
-    def fn(blocks, cxy, obs_c, core4, coeffs, ici_c, warp_fixed):
+    def fn(blocks, cxy, obs_c, core4, coeffs, cam, warp_fixed):
         p_cam = _board_corners_cam(spec, consts, blocks, cxy, warp_fixed)
         u = stereographic_uv(p_cam)
         ix0, iy0, tx, ty = splined_window_index(u, lm)
         offs = torch.arange(R, device=u.device)
-        win = coeffs[ici_c[:, None, None],
+        win = coeffs[cam[:, None, None],
                      (iy0[:, None] - 1 + offs)[:, :, None],
                      (ix0[:, None] - 1 + offs)[:, None, :]]   # (N,R,R,2)
         wx = bspline_weights(tx, lm)
@@ -304,11 +301,6 @@ def _batch_of_one(arrays):
             for k, v in arrays.items()}
 
 
-def _one(pk):
-    """The packed blocks of one problem as a batch of one."""
-    return {k: v[None] for k, v in pk.items()}
-
-
 class _ObservationRows:
     """The residual rows of each kind of observation and their Jacobians
     over the observation's own packed blocks, on the device and in the
@@ -316,12 +308,11 @@ class _ObservationRows:
     triangulated rows per pair.  The normal equations and the sparse
     Jacobian both take their rows from here.
 
-    Every method but splined_board takes a batch of P problems of one
-    structure: packed blocks and float arrays lead with P, the index
-    arrays are shared, and the rows of all P problems go through one
-    autograd pass (each row depends on its own copy of its blocks only,
-    so the per-row Jacobians stay exact).  splined_board takes one
-    problem.
+    Every method takes a batch of P problems of one structure: packed
+    blocks and float arrays lead with P, the index arrays are shared, and
+    the rows of all P problems go through one autograd pass (each row
+    depends on its own copy of its blocks only, so the per-row Jacobians
+    stay exact).
 
     The observation counts are those of `arrays` (a shard of a problem
     holds fewer than its spec says), and pairs = (i0, i1), host arrays,
@@ -405,13 +396,14 @@ class _ObservationRows:
 
     def splined_board(self, pk, arrays, jacobian=True):
         """The board rows of a splined model with the core locked, per
-        corner: r (N, 2), the pose Jacobian {ext, frame, warp: (N, 2,
-        n)}, the window Jacobian Jw (N, 2, 2R^2) over the window's control
-        points, their columns in the camera-system layout wincols (N,
-        2R^2), and the windows' (ix0, iy0, wx, wy).  q is linear in the
-        window: dr_k/dwin[jy, jx, m] = w f_k wy[jy] wx[jx] delta_km, in
-        packed units since the distortions' packing scale is 1.
-        jacobian=False: J^T r per corner {ext, frame, warp: (N, n)} in
+        corner, for P problems: r (P, N, 2), the pose Jacobian {ext,
+        frame, warp: (P, N, 2, n)}, the window Jacobian Jw (P, N, 2, 2R^2)
+        over the window's control points, their columns in the
+        camera-system layout wincols (P, N, 2R^2), and the windows' (ix0,
+        iy0 (P, N), wx, wy (P, N, R)).  q is linear in the window:
+        dr_k/dwin[jy, jx, m] = w f_k wy[jy] wx[jx] delta_km, in packed
+        units since the distortions' packing scale is 1.
+        jacobian=False: J^T r per corner {ext, frame, warp: (P, N, n)} in
         place of the pose Jacobian, and no Jw."""
         assert _layout.SCALE_DISTORTION == 1.0
         spec = self.spec
@@ -419,19 +411,35 @@ class _ObservationRows:
         R = lm.order + 1
         idx = arrays["indices_board"]
         ifr, ici, ice = idx[:, 0], idx[:, 1], idx[:, 2]
-        ici_c = ici.repeat_interleave(self.HW)
-        blocks = dict(ext=pk["ext_pad"][ice + 1], frame=pk["frame"][ifr],
-                      warp=pk["warp"].expand(len(idx), 2))
         intr_full = pk["intr_full"]
-        core4 = intr_full[ici_c, :4]
-        coeffs = intr_full[:, 4:].reshape(-1, lm.Ny, lm.Nx, 2)
+        P, Nci = intr_full.shape[:2]
+        Nobs = len(idx)
+        ici_c = ici.repeat_interleave(self.HW)
+
+        def per_corner(t):                       # (P, Nobs, n) -> (P*N, n)
+            return t.repeat_interleave(self.HW, dim=1).reshape(
+                -1, t.shape[-1])
+
+        blocks = dict(ext=pk["ext_pad"][:, ice + 1],
+                      frame=pk["frame"][:, ifr],
+                      warp=pk["warp"][:, None].expand(P, Nobs, 2))
+        core4 = intr_full[:, ici_c, :4].reshape(-1, 4)
+        # every problem's cameras, one after the other
+        coeffs = intr_full[..., 4:].reshape(P * Nci, lm.Ny, lm.Nx, 2)
+        cam = (torch.arange(P, device=idx.device)[:, None] * Nci
+               + ici_c).reshape(-1)
         obs_c = arrays["observations_board"].reshape(-1, 3)
-        args = ({k: v.repeat_interleave(self.HW, dim=0)
-                 for k, v in blocks.items()},
-                self.cxy, obs_c, core4, coeffs, ici_c, pk["warp_real"])
+        args = ({k: per_corner(v) for k, v in blocks.items()},
+                self.cxy.repeat(P, 1), obs_c, core4, coeffs, cam,
+                per_corner(pk["warp_real"][:, None].expand(P, Nobs, 2)))
+
+        def lead(t):
+            return t.reshape((P, -1) + t.shape[1:])
+
         if not jacobian:
             r, JTr, aux = _rows_and_vjp(self.splined_fn, *args)
-            return r, JTr, aux
+            return (lead(r), {k: lead(v) for k, v in JTr.items()},
+                    tuple(lead(t) for t in aux))
         r, J, (ix0, iy0, wx, wy) = _rows_and_jacobian(
             self.splined_fn, *args, has_aux=True)
         N = r.shape[0]
@@ -443,11 +451,12 @@ class _ObservationRows:
         offs = torch.arange(R, device=r.device)
         knot = ((iy0[:, None] - 1 + offs)[:, :, None] * lm.Nx
                 + (ix0[:, None] - 1 + offs)[:, None, :])      # (N,R,R)
-        wincols = (ici_c[:, None, None, None]
+        wincols = (ici_c.repeat(P)[:, None, None, None]
                    * spec.Nintrinsics_state_per_cam
                    + 2 * knot[..., None]
                    + torch.arange(2, device=r.device)).reshape(N, -1)
-        return r, J, Jw, wincols, (ix0, iy0, wx, wy)
+        return (lead(r), {k: lead(v) for k, v in J.items()}, lead(Jw),
+                lead(wincols), tuple(lead(t) for t in (ix0, iy0, wx, wy)))
 
     def point(self, pk, arrays):
         """-> r (P, Nobs, 2) and J {intr, ext, point: (P, Nobs, 2, n)};
@@ -600,32 +609,39 @@ def build_normal_equations(spec: ProblemSpec, arrays, static_idx, *,
     problem is evaluated as a batch of one.
 
     Splined models with the core locked take the spline-window assembly
-    (build_normal_equations_splined) for one problem only; its f also has
-    a gradient-only mode, and it alone takes h32."""
-    require_ported(spec.lensmodel)
+    (build_normal_equations_splined); its f also has a gradient-only
+    mode, and it alone takes h32."""
     if _splined_fast_path_ok(spec):
         return build_normal_equations_splined(
             spec, arrays, static_idx, h32=h32, regularization=regularization)
     if h32:
         raise ValueError("h32: only the splined window assembly assembles "
                          "H in float32")
-    f = _build_normal_equations_batch(spec, arrays, static_idx,
-                                      regularization=regularization)
+    return _one_or_batch(_build_normal_equations_batch(
+        spec, arrays, static_idx, regularization=regularization))
 
-    def one_or_batch(b, arrays):
-        if b.dim() == 2:
-            return f(b, arrays)
-        return {k: v[0] for k, v in f(b[None], _batch_of_one(arrays)).items()}
 
-    def add_regularization(b, arrays, ne):
+def _one_or_batch(f):
+    """f(b (P, Nstate), arrays, **kw) -> a dict with a leading P on every
+    leaf, and f.add_regularization(b, arrays, ne, **kw), as functions that
+    also take one problem (b (Nstate,)) and evaluate it as a batch of
+    one.  The regularization of one problem goes in place into its g_c
+    and (if ne has it) Hcc, as the batch's does."""
+    def g(b, arrays, **kw):
         if b.dim() == 2:
-            return f.add_regularization(b, arrays, ne)
-        one = {k: ne[k][None] for k in ("E", "g_c", "Hcc")}
-        out = f.add_regularization(b[None], _batch_of_one(arrays), one)
+            return f(b, arrays, **kw)
+        return {k: v[0] for k, v in
+                f(b[None], _batch_of_one(arrays), **kw).items()}
+
+    def add_regularization(b, arrays, ne, **kw):
+        if b.dim() == 2:
+            return f.add_regularization(b, arrays, ne, **kw)
+        one = {k: ne[k][None] for k in ("E", "g_c", "Hcc") if k in ne}
+        out = f.add_regularization(b[None], _batch_of_one(arrays), one, **kw)
         return dict(ne, E=out["E"][0], x_reg=out["x_reg"][0])
 
-    one_or_batch.add_regularization = add_regularization
-    return one_or_batch
+    g.add_regularization = add_regularization
+    return g
 
 
 def _build_normal_equations_batch(spec: ProblemSpec, arrays, static_idx,
@@ -901,18 +917,20 @@ def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
     only.  Each corner's two rows depend on its pose blocks (autograd,
     two cotangents) and on the 2(order+1)^2 control points of its spline
     window (closed form).  They are written into dense camera-system rows
-    (N, 2, Nc) with index_put_ (exact: a row's columns are distinct), and
-    Hcc = rows^T rows, Cf = Jf^T rows per observation, as plain products.
-    The gradient takes the tensor-product separability of the basis
-    instead of the rows: g_knot[c, y, x, m] = sum_n [ici_n = c] ry[n, y]
-    rx[n, x] f_m w r_nm, with rx, ry the basis weights scattered onto the
-    grid.
+    (P, N, 2, Nc) with index_put_ (exact: a row's columns are distinct),
+    and Hcc = rows^T rows (one batched product), Cf = Jf^T rows per
+    observation, as plain products.  The gradient takes the
+    tensor-product separability of the basis instead of the rows:
+    g_knot[c, y, x, m] = sum_n [ici_n = c] ry[n, y] rx[n, x] f_m w r_nm,
+    with rx, ry the basis weights scattered onto the grid.
 
-    f(b, arrays, hessian=True) -> the dict of build_normal_equations;
-    hessian=False gives E, the gradient and the residuals only, and skips
-    the rows and their products (the lazy-Hessian mode).  h32: the rows
-    and the H and C blocks in float32, the gradient in the state's dtype
-    (the float64-gradient, float32-H scheme).  regularization and
+    f(b, arrays, hessian=True) -> the dict of build_normal_equations, for
+    one problem or for a batch of P (b (P, Nstate), every float array of
+    `arrays` and every leaf of the result leading with P); hessian=False
+    gives E, the gradient and the residuals only, and skips the rows and
+    their products (the lazy-Hessian mode; also f.gradient).  h32: the
+    rows and the H and C blocks in float32, the gradient in the state's
+    dtype (the float64-gradient, float32-H scheme).  regularization and
     f.add_regularization(b, arrays, ne, hessian=True) as
     build_normal_equations has them."""
     s = spec.selections
@@ -938,21 +956,23 @@ def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
     oh_f = _one_hot(idxb[:, 0], Nf, dt)                  # (Nf, Nob)
     oh_fh = oh_f.to(hdt)
     oh_e = _one_hot(idxb[:, 2], Nce, dt)                 # (Nce, Nob)
-    # every row index and the extrinsics columns of every corner row
-    n_idx = torch.arange(N, device=dev)[:, None, None]
-    m_idx = torch.arange(2, device=dev)[None, :, None]
+    # the rows' indices: (problem, corner, row) of every window entry, and
+    # (corner, row) of the extrinsics columns of every corner row
+    n4 = torch.arange(N, device=dev)[None, :, None, None]
+    m4 = torch.arange(2, device=dev)[None, None, :, None]
     cole = (cl.e0 + 6 * torch.clamp_min(ice_c, 0))[:, None, None] + \
-        torch.arange(6, device=dev)
+        torch.arange(6, device=dev)                      # (N, 1, 6)
     ext_valid = (ice_c >= 0).to(dt)[:, None, None]
     oh_ci = (_one_hot(ici_c, Nci, dt).T[:, :, None] if Nci > 1
              else None)                                  # (N, Nci, 1)
     reg_cache = {}
 
     def f(b, arrays, hessian=True):
+        P = b.shape[0]
         params = split_packed_state(b, arrays, spec, scales=consts.state)
         pk = rows_of.packed(params)
         obs_w = torch.clamp_min(arrays["observations_board"][..., 2],
-                                0.0).reshape(-1)
+                                0.0).reshape(P, N)
         if hessian:
             r, J, Jw, wincols, (ix0, iy0, wx, wy) = \
                 rows_of.splined_board(pk, arrays)
@@ -962,7 +982,7 @@ def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
                 else torch.zeros_like(J["frame"])
             Jwp = J["warp"] if spec.has_calobject_warp \
                 else torch.zeros_like(J["warp"])
-            JTr = {k: torch.einsum("nri,nr->ni", Jk, r)
+            JTr = {k: torch.einsum("pnri,pnr->pni", Jk, r)
                    for k, Jk in (("ext", Je), ("frame", Jf), ("warp", Jwp))}
         else:
             r, JTr, (ix0, iy0, wx, wy) = rows_of.splined_board(
@@ -975,51 +995,55 @@ def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
                 warp=(JTr["warp"] if spec.has_calobject_warp
                       else torch.zeros_like(JTr["warp"])))
 
-        E = torch.sum(r * r)
+        E = torch.sum(r * r, dim=(1, 2))
         # ---- gradient: separable knot part, per-observation pose parts
         R = lm.order + 1
         offs = torch.arange(R, device=dev)
-        rx = r.new_zeros((N, lm.Nx)).scatter_(
-            1, ix0[:, None] - 1 + offs, wx)
-        ry = r.new_zeros((N, lm.Ny)).scatter_(
-            1, iy0[:, None] - 1 + offs, wy)
-        f2r = r * pk["intr_full"][ici_c, :2] * obs_w[:, None]
-        rya = ry if oh_ci is None else (oh_ci * ry[:, None, :]).reshape(
-            N, Nci * lm.Ny)
-        gk = rya.T @ (rx[:, :, None] * f2r[:, None, :]).reshape(N, -1)
+        rx = r.new_zeros((P, N, lm.Nx)).scatter_(
+            2, ix0[..., None] - 1 + offs, wx)
+        ry = r.new_zeros((P, N, lm.Ny)).scatter_(
+            2, iy0[..., None] - 1 + offs, wy)
+        f2r = r * pk["intr_full"][:, ici_c, :2] * obs_w[..., None]
+        rya = ry if oh_ci is None else (oh_ci * ry[:, :, None, :]).reshape(
+            P, N, Nci * lm.Ny)
+        gk = rya.transpose(1, 2) @ (rx[..., None] * f2r[:, :, None, :]
+                                    ).reshape(P, N, -1)
         g_c = torch.cat([
-            gk.reshape(-1),
-            (oh_e @ JTr["ext"].reshape(Nob, HW, 6).sum(dim=1)).reshape(-1),
-            JTr["warp"].sum(dim=0)])
-        g_f = r.new_zeros((max(Nf, 1), 6))
-        g_f[:Nf] = oh_f @ JTr["frame"].reshape(Nob, HW, 6).sum(dim=1)
-        out = dict(E=E, g_c=g_c, g_f=g_f, g_p=r.new_zeros((max(Npv, 1), 3)),
-                   x_board=r.reshape(-1), x_point=r.new_zeros((0,)),
-                   x_tri=r.new_zeros((0,)))
+            gk.reshape(P, -1),
+            (oh_e @ JTr["ext"].reshape(P, Nob, HW, 6).sum(dim=2)).reshape(
+                P, -1),
+            JTr["warp"].sum(dim=1)], dim=1)
+        g_f = r.new_zeros((P, max(Nf, 1), 6))
+        g_f[:, :Nf] = oh_f @ JTr["frame"].reshape(P, Nob, HW, 6).sum(dim=2)
+        out = dict(E=E, g_c=g_c, g_f=g_f,
+                   g_p=r.new_zeros((P, max(Npv, 1), 3)),
+                   x_board=r.reshape(P, -1), x_point=r.new_zeros((P, 0)),
+                   x_tri=r.new_zeros((P, 0)))
 
         # ---- H and C: the dense camera-system rows and their products
         if hessian:
-            rows = torch.zeros((N, 2, cl.Nc), dtype=hdt, device=dev)
-            rows[n_idx, m_idx, wincols[:, None, :]] = Jw.to(hdt)
+            rows = torch.zeros((P, N, 2, cl.Nc), dtype=hdt, device=dev)
+            p4 = torch.arange(P, device=dev)[:, None, None, None]
+            rows[p4, n4, m4, wincols[:, :, None, :]] = Jw.to(hdt)
             if Nce:
-                rows[n_idx, m_idx, cole] = Je.to(hdt)
-            rows[:, :, cl.w0:cl.w0 + 2] = Jwp.to(hdt)
-            rows2 = rows.reshape(2 * N, cl.Nc)
-            Hcc = rows2.T @ rows2
-            Jf_o = Jf.to(hdt).reshape(Nob, M2, 6)
-            Cf = r.new_zeros((max(Nf, 1), 6, cl.Nc), dtype=hdt)
-            Cf[:Nf] = (oh_fh @ torch.bmm(
-                Jf_o.transpose(1, 2), rows.reshape(Nob, M2, cl.Nc)
-            ).reshape(Nob, -1)).reshape(Nf, 6, cl.Nc)
-            Hff = r.new_zeros((max(Nf, 1), 6, 6), dtype=hdt)
-            Hff[:Nf] = (oh_fh @ torch.bmm(Jf_o.transpose(1, 2), Jf_o
-                                          ).reshape(Nob, 36)).reshape(
-                                              Nf, 6, 6)
+                rows[:, n4[0], m4[0], cole] = Je.to(hdt)
+            rows[..., cl.w0:cl.w0 + 2] = Jwp.to(hdt)
+            rows2 = rows.reshape(P, 2 * N, cl.Nc)
+            Hcc = rows2.transpose(1, 2) @ rows2
+            Jf_o = Jf.to(hdt).reshape(P, Nob, M2, 6)
+            Cf = r.new_zeros((P, max(Nf, 1), 6, cl.Nc), dtype=hdt)
+            Cf[:, :Nf] = (oh_fh @ (Jf_o.transpose(2, 3) @ rows.reshape(
+                P, Nob, M2, cl.Nc)).reshape(P, Nob, -1)).reshape(
+                    P, Nf, 6, cl.Nc)
+            Hff = r.new_zeros((P, max(Nf, 1), 6, 6), dtype=hdt)
+            Hff[:, :Nf] = (oh_fh @ (Jf_o.transpose(2, 3) @ Jf_o).reshape(
+                P, Nob, 36)).reshape(P, Nf, 6, 6)
             out.update(Hcc=Hcc, Hff=Hff, Cf=Cf,
-                       Hpp=r.new_zeros((max(Npv, 1), 3, 3), dtype=hdt),
-                       Cp=r.new_zeros((max(Npv, 1), 3, cl.Nc), dtype=hdt))
+                       Hpp=r.new_zeros((P, max(Npv, 1), 3, 3), dtype=hdt),
+                       Cp=r.new_zeros((P, max(Npv, 1), 3, cl.Nc),
+                                      dtype=hdt))
 
-        x_reg = r.new_zeros((0,))
+        x_reg = r.new_zeros((P, 0))
         if regularization:
             E, x_reg = add_reg(pk, E, g_c, out.get("Hcc"))
         out.update(E=E, x_reg=x_reg)
@@ -1027,36 +1051,39 @@ def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
 
     def add_reg(pk, E, g_c, Hcc):
         """The regularization rows added to E, and in place to g_c and
-        (unless None) Hcc -> (E, x_reg)."""
+        (unless None) Hcc, each with the leading P -> (E, x_reg)."""
         # linear in the control points, so its Jacobian is taken once
-        x_reg = E.new_zeros((0,))
+        P = E.shape[0]
+        x_reg = E.new_zeros((P, 0))
         if s.do_apply_regularization:
             rreg = splined_regularization(
-                pk["intr_full"][:, 4:].reshape(Nci, lm.Ny, lm.Nx, 2),
-                *consts.reg_knots)                       # (Nci, nterms)
+                pk["intr_full"][..., 4:].reshape(P, Nci, lm.Ny, lm.Nx, 2),
+                *consts.reg_knots)                       # (P, Nci, nterms)
             if not reg_cache:
-                # (Nci, nterms, Nip)
-                Jreg = rows_of.regularization(_one(pk))[1][0]
+                # (Nci, nterms, Nip), from the first problem
+                Jreg = rows_of.regularization(
+                    {k: v[:1] for k, v in pk.items()})[1][0]
                 reg_cache.update(J=Jreg, JtJ=torch.einsum(
                     "cki,ckj->cij", Jreg, Jreg).to(hdt))
-            E = E + torch.sum(rreg * rreg)
-            g_c[:cl.e0] += torch.einsum("cki,ck->ci", reg_cache["J"],
-                                        rreg).reshape(-1)
+            E = E + torch.sum(rreg * rreg, dim=(1, 2))
+            g_c[:, :cl.e0] += torch.einsum(
+                "cki,pck->pci", reg_cache["J"], rreg).reshape(P, -1)
             if Hcc is not None:
                 for ci in range(Nci):
                     i0 = cl.coli(ci)
-                    Hcc[i0:i0 + cl.Nip, i0:i0 + cl.Nip] += \
+                    Hcc[:, i0:i0 + cl.Nip, i0:i0 + cl.Nip] += \
                         reg_cache["JtJ"][ci]
-            x_reg = rreg.reshape(-1)
+            x_reg = rreg.reshape(P, -1)
         if (s.do_apply_regularization_unity_cam01
                 and s.do_optimize_extrinsics and Nce > 0):
-            ru, Ju = (t[0] for t in rows_of.unity_cam01(_one(pk)))
+            ru, Ju = rows_of.unity_cam01(pk)             # (P,), (P, 6)
             E = E + ru * ru
             e0 = cl.cole(0)
-            g_c[e0:e0 + 6] += Ju * ru
+            g_c[:, e0:e0 + 6] += Ju * ru[:, None]
             if Hcc is not None:
-                Hcc[e0:e0 + 6, e0:e0 + 6] += torch.outer(Ju, Ju).to(hdt)
-            x_reg = torch.cat([x_reg, ru[None]])
+                Hcc[:, e0:e0 + 6, e0:e0 + 6] += \
+                    (Ju[:, :, None] * Ju[:, None]).to(hdt)
+            x_reg = torch.cat([x_reg, ru[:, None]], dim=1)
         return E, x_reg
 
     def add_regularization(b, arrays, ne, hessian=True):
@@ -1065,9 +1092,10 @@ def build_normal_equations_splined(spec: ProblemSpec, arrays, static_idx,
                            ne["Hcc"] if hessian else None)
         return dict(ne, E=E, x_reg=x_reg)
 
-    f.gradient = lambda b, arrays: f(b, arrays, hessian=False)
     f.add_regularization = add_regularization
-    return f
+    g = _one_or_batch(f)
+    g.gradient = lambda b, arrays: g(b, arrays, hessian=False)
+    return g
 
 
 # ----------------------------------------------------------------------------
@@ -1369,10 +1397,13 @@ def _lm_update(E, E_try, pred, db, lam, nu, E_ref, window, eff_threshold,
 
 def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
              max_iterations=300, update_threshold=1e-7, dtype=None,
-             quiet=False, lam0=1e-4, ftol=None, lazy_K=None, h32=False):
+             quiet=False, lam0=1e-4, ftol=None, lazy_K=None, h32=False,
+             verbose=False):
     """Levenberg-Marquardt to convergence: the rules of _lm_update as one
     Python loop over tensors on the device of `arrays` (_lm_loop).  Each
-    iteration reads one scalar (accept and done).
+    iteration reads one scalar (accept and done); verbose also reads and
+    prints the iteration's E, trial E, lambda, gain ratio and largest
+    step, as the JAX package's host loop prints them.
 
     lazy_K > 0 is the lazy-Hessian mode: the H and C blocks refresh only
     on the (K+1)-th accepted step after the last refresh, while E, the
@@ -1394,11 +1425,22 @@ def lm_solve(spec: ProblemSpec, arrays, b0, static_idx, *,
                     lambda b: grad_fn(b, arrays), b0,
                     max_iterations=max_iterations,
                     update_threshold=update_threshold, quiet=quiet,
-                    lam0=lam0, ftol=ftol, lazy_K=lazy_K)
+                    lam0=lam0, ftol=ftol, lazy_K=lazy_K, verbose=verbose)
+
+
+def _print_iteration(it, E, E_try, pred, lam, db):
+    """The JAX package's verbose line of one LM iteration: one host read
+    of its five numbers."""
+    rho = torch.where(pred > 0, (E - E_try) / pred, -1.0)
+    dbmax = torch.amax(torch.abs(db)) if db.numel() else db.new_zeros(())
+    E, E_try, lam, rho, dbmax = torch.stack(
+        [t.to(E.dtype) for t in (E, E_try, lam, rho, dbmax)]).tolist()
+    print(f"iter {it}: E={E:.6e} Enew={E_try:.6e} lam={lam:.2e} "
+          f"rho={rho:.3f} |db|={dbmax:.2e}")
 
 
 def _lm_loop(spec: ProblemSpec, ne_fn, grad_fn, b0, *, max_iterations,
-             update_threshold, quiet, lam0, ftol, lazy_K):
+             update_threshold, quiet, lam0, ftol, lazy_K, verbose=False):
     """The LM loop of one problem around ne_fn(b) -> the normal equations
     and grad_fn(b) -> their _LAZY_H_GRAD_KEYS (the lazy-Hessian mode's
     evaluation on steps that keep H), both at the packed state b.  The
@@ -1427,6 +1469,8 @@ def _lm_loop(spec: ProblemSpec, ne_fn, grad_fn, b0, *, max_iterations,
                 new = grad_fn(b_try)
                 ne_try.update({k: new[k] for k in _LAZY_H_GRAD_KEYS})
             window = it + 1 - it_ref >= 16
+            if verbose:
+                _print_iteration(it, ne["E"], ne_try["E"], pred, lam, db)
             accept, done, lam, nu, E_ref = _lm_update(
                 ne["E"], ne_try["E"], pred, db, lam, nu, E_ref, window,
                 eff_threshold, ftol, benchmark)
@@ -1445,7 +1489,7 @@ def _lm_loop(spec: ProblemSpec, ne_fn, grad_fn, b0, *, max_iterations,
 
 def lm_solve_batch(spec: ProblemSpec, arrays, b0, static_idx, *,
                    max_iterations=300, update_threshold=1e-7, dtype=None,
-                   quiet=False, lam0=1e-4, ftol=None):
+                   quiet=False, lam0=1e-4, ftol=None, lazy_K=None):
     """lm_solve for P problems of one structure in lockstep, as the JAX
     package's vmap of its device loop runs them: b0 (P, Nstate), every
     float array of `arrays` leading with P, the index arrays shared.
@@ -1456,19 +1500,25 @@ def lm_solve_batch(spec: ProblemSpec, arrays, b0, static_idx, *,
     changing), and the batch runs until its slowest problem is done or
     max_iterations.  The active problems share one iteration count, so
     the plateau window's position is a host integer.  Each iteration
-    reads one scalar (all done).  No lazy-H and no h32: the splined
-    window assembly takes one problem.
+    reads one small tensor (the done and accept flags).
+
+    lazy_K as lm_solve has it, per problem: each problem counts its own
+    accepted steps since its last H refresh.  An iteration where some
+    active problem is due evaluates the full normal equations of the
+    batch and keeps the stale H of the others; an iteration where none is
+    due evaluates the gradient alone.
 
     Returns (b (P, Nstate), E (P,), niter (P,) int64, ne with a leading P
     on every leaf), tensors on the device."""
-    if _splined_fast_path_ok(spec):
-        raise NotImplementedError(_SPLINED_BATCH_NOT_PORTED)
     if dtype is not None:
         arrays = _cast_arrays(arrays, dtype)
         b0 = b0.to(dtype)
+    if lazy_K is None:
+        lazy_K = _lazy_h_K(spec, b0.dtype, b0.device)
     eff_threshold, ftol, benchmark = _lm_settings(update_threshold,
                                                   b0.dtype, quiet, ftol)
     ne_fn = build_normal_equations(spec, arrays, static_idx)
+    grad_fn = getattr(ne_fn, "gradient", ne_fn)
     P = b0.shape[0]
 
     with torch.no_grad():
@@ -1479,12 +1529,28 @@ def lm_solve_batch(spec: ProblemSpec, arrays, b0, static_idx, *,
         E_ref, it_ref = ne["E"], 0
         done = torch.zeros(P, dtype=torch.bool, device=b.device)
         niter = torch.zeros(P, dtype=torch.int64, device=b.device)
+        # host copies: the active problems, and each one's accepted steps
+        # since its last H refresh
+        active_np = np.ones(P, bool)
+        age = np.zeros(P, np.int64)
         it = 0
         while it < max_iterations:
             dc, df, dp, pred = schur_step(ne, lam, spec)
             db = _delta_to_b(dc, df, dp, spec)
             b_try = b + db
-            ne_try = ne_fn(b_try, arrays)
+            refresh_np = age >= lazy_K
+            if (refresh_np & active_np).any():
+                ne_try = ne_fn(b_try, arrays)
+                if not refresh_np.all():
+                    keep = torch.as_tensor(~refresh_np, device=b.device)
+                    ne_try.update({
+                        k: torch.where(_per_problem(keep, v), ne[k], v)
+                        for k, v in ne_try.items()
+                        if k not in _LAZY_H_GRAD_KEYS})
+            else:
+                ne_try = dict(ne)                  # the stale H blocks
+                new = grad_fn(b_try, arrays)
+                ne_try.update({k: new[k] for k in _LAZY_H_GRAD_KEYS})
             window = it + 1 - it_ref >= 16
             accept, stop, lam_new, nu_new, E_ref_new = _lm_update(
                 ne["E"], ne_try["E"], pred, db, lam, nu, E_ref, window,
@@ -1502,14 +1568,17 @@ def lm_solve_batch(spec: ProblemSpec, arrays, b0, static_idx, *,
             niter = niter + active
             done = done | stop
             it += 1
-            if bool(done.all()):
+            done_np, accept_np = torch.stack([done, accept]).cpu().numpy()
+            age = np.where(accept_np, np.where(refresh_np, 0, age + 1), age)
+            active_np = ~done_np
+            if done_np.all():
                 break
     return b, ne["E"], niter, ne
 
 
 def _mark_outliers(spec: ProblemSpec, obs_board_np, x_board,
                    obs_tri_np=None, x_tri=None, px_tri=None, idx_tri=None,
-                   extrinsics=None):
+                   extrinsics=None, verbose=False):
     """Reference markOutliers semantics: estimate the residual variance
     from the current inliers (board and triangulated measurements pooled);
     if any inlier component exceeds 5 sigma, flip the weight sign of every
@@ -1523,8 +1592,9 @@ def _mark_outliers(spec: ProblemSpec, obs_board_np, x_board,
         residuals' k0/k1 sigma thresholds.
 
     Host code: numpy, and the port's Mid2 on CPU tensors.  Mutates
-    obs_board_np and obs_tri_np (weight sign = outlier bit, column 2).
-    Returns (found_new, Noutliers_board, Noutliers_triangulated)."""
+    obs_board_np and obs_tri_np (weight sign = outlier bit, column 2);
+    verbose prints what each pass marks.  Returns (found_new,
+    Noutliers_board, Noutliers_triangulated)."""
     k0, k1 = 4.0, 5.0
     found = False
     var_sum = 0.0
@@ -1566,6 +1636,9 @@ def _mark_outliers(spec: ProblemSpec, obs_board_np, x_board,
             bad_obs[i1[new_div]] = True
             obs_tri_np[bad_obs & (w_t > 0), 2] *= -1.0
             found = True
+            if verbose:
+                print(f"marked {int(np.sum(new_div))} divergent "
+                      "triangulated pairs as outliers")
         w_t = obs_tri_np[:, 2]
         pair_inlier = (w_t[i0] > 0) & (w_t[i1] > 0)
         Nout_t = int(np.sum(~pair_inlier))
@@ -1593,6 +1666,9 @@ def _mark_outliers(spec: ProblemSpec, obs_board_np, x_board,
         mark = np.any(r ** 2 > (k0 * k0) * var, axis=-1) & inlier_b
         obs_board_np[..., 2][mark] *= -1.0
         Nout_b += int(np.sum(mark))
+        if verbose and np.any(mark):
+            print(f"marked {int(np.sum(mark))} new board outliers "
+                  f"(total {Nout_b})")
     if have_tri:
         bad_pair = pair_inlier & (xt ** 2 > (k0 * k0) * var)
         if np.any(bad_pair):
@@ -1601,6 +1677,9 @@ def _mark_outliers(spec: ProblemSpec, obs_board_np, x_board,
             bad_obs[i0[bad_pair]] = True
             bad_obs[i1[bad_pair]] = True
             obs_tri_np[bad_obs & (w_t > 0), 2] *= -1.0
+            if verbose:
+                print(f"marked {int(np.sum(bad_pair))} new triangulated "
+                      "pair outliers")
         w_t = obs_tri_np[:, 2]
         Nout_t = int(np.sum(~((w_t[i0] > 0) & (w_t[i1] > 0))))
     return True, Nout_b, Nout_t
@@ -1671,10 +1750,6 @@ class _SolveTimer:
 
 
 def _check_options(kw):
-    for key, where in _NOT_PORTED_OPTIONS.items():
-        if kw.get(key):
-            raise NotImplementedError(f"optimize({key}=...) is not ported "
-                                      f"yet: {where}")
     if kw.get("device_loop") is False:
         raise NotImplementedError(
             "optimize(device_loop=False): the port has one LM loop")
@@ -1809,6 +1884,10 @@ def optimize(*, device=None, **kw):
     'f32', or 'mixed' (f32 phase to approximate convergence, then an f64
     polish).
 
+    verbose=True prints a line per LM iteration (not on a mesh) and per
+    outlier pass that marks something, and a line per column checked with
+    check_gradient=True, as the JAX package prints them.
+
     mesh: a mrcal_tpu_torch.parallel mesh, an int or "auto" (make_mesh of
     the torch.distributed default group, on `device`: None means each
     rank's card) shards the observations over the group's ranks
@@ -1822,7 +1901,11 @@ def optimize(*, device=None, **kw):
     instead, and returns that report without solving."""
     _check_options(kw)
     mesh = kw.pop("mesh", None)
-    lm = lm_solve
+    verbose = bool(kw.get("verbose", False))
+
+    def lm(*args, **solve_kw):
+        return lm_solve(*args, verbose=verbose, **solve_kw)
+
     if mesh is not None:
         from ..parallel.sharding import (Mesh, make_mesh,
                                          sharded_lm_solve_device)
@@ -1837,7 +1920,6 @@ def optimize(*, device=None, **kw):
     timer = _SolveTimer()
     kw = _layout.normalize_inputs(kw)
     spec = spec_from_inputs(**kw)
-    require_ported(spec.lensmodel)
 
     # the caller's arrays, mutated in place by outlier marking
     np_obs_board, np_obs_tri = _np_observations(kw)
@@ -1851,7 +1933,7 @@ def optimize(*, device=None, **kw):
         # the reference's semantics: check the Jacobian column by column
         # against finite differences, and return without solving
         from .jacobian import _check_gradient_report
-        return _check_gradient_report(spec, arrays, b)
+        return _check_gradient_report(spec, arrays, b, verbose=verbose)
 
     precision = _precision(kw)
     solve = _solver(lm, spec, arrays, static_idx, kw)
@@ -1880,7 +1962,8 @@ def optimize(*, device=None, **kw):
                 spec, np_obs_board, sol["x_board"], obs_tri_np=np_obs_tri,
                 x_tri=sol["x_tri"], px_tri=px_tri_np, idx_tri=idx_tri_np,
                 extrinsics=blocks_np.get("extrinsics",
-                                         kw.get("extrinsics_rt_fromref")))
+                                         kw.get("extrinsics_rt_fromref")),
+                verbose=verbose)
         if not found:
             break
         for name, a in (("observations_board", np_obs_board),
@@ -1896,12 +1979,6 @@ def optimize(*, device=None, **kw):
 # ----------------------------------------------------------------------------
 # batched solves: many same-structure problems in lockstep
 # ----------------------------------------------------------------------------
-
-_SPLINED_BATCH_NOT_PORTED = (
-    "optimize_batch of a splined model with its core locked (the "
-    "spline-window assembly) is not ported yet: ROADMAP queue 1 (the "
-    "batched spline-window assembly)")
-
 
 def _stack_arrays(arrays_list):
     """The arrays of P problems of one structure as one batch: the float
@@ -1933,10 +2010,10 @@ def optimize_batch(problems, *, device=None, **common_kw):
     and when any problem found outliers the whole batch is solved again
     from its current solutions.  Returns a list of per-problem stats with
     optimize()'s keys; time_s is the batch's, and Noutliers counts every
-    observation of weight <= 0, padding rows included.
-
-    Splined models with the core locked (the spline-window assembly)
-    raise NotImplementedError."""
+    observation of weight <= 0, padding rows included.  Splined models
+    with the core locked take the spline-window assembly with a problem
+    axis, and their f32 phase on the card the lazy Hessian per
+    problem."""
     if not problems:
         return []
     _check_options(common_kw)
@@ -1945,9 +2022,6 @@ def optimize_batch(problems, *, device=None, **common_kw):
     kws = [_layout.normalize_inputs(dict(p)) for p in problems]
     specs = [spec_from_inputs(**kw) for kw in kws]
     spec = specs[0]
-    require_ported(spec.lensmodel)
-    if _splined_fast_path_ok(spec):
-        raise NotImplementedError(_SPLINED_BATCH_NOT_PORTED)
     if any(s != spec for s in specs[1:]):
         raise ValueError("optimize_batch needs identical problem "
                          "structure across the batch")

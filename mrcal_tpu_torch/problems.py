@@ -6,7 +6,9 @@ Ports the JAX package's problem builders so that the port's own tools
 ``synthetic_data.make_perfect_observations`` (board and point branches),
 ``perturbed_oi`` is ``bench._perturbed_oi``, and ``opencv8_1cam``,
 ``opencv8_4cam``, ``splined_30x18``, ``rig16cam`` and ``sfm_triangulated``
-are the bench's configurations of those names.
+are the bench's configurations of those names; ``cahvor_1cam`` and
+``cahvore_1cam`` are opencv8_1cam's with the CAHVOR and CAHVORE
+models.
 
 The builders draw from the GLOBAL numpy RNG in exactly the JAX package's
 order (``np.random.seed(0)``, then ``randn`` for the frames, then ``randn``
@@ -47,6 +49,13 @@ SPLINED_30X18 = dict(Ncameras=1, Nframes=84,
                      model="LENSMODEL_SPLINED_STEREOGRAPHIC_order=3_Nx=30"
                            "_Ny=18_fov_x_deg=150",
                      W=14, H=14, do_optimize_intrinsics_core=False)
+
+# opencv8_1cam's shape with the CAHVOR model, and with CAHVORE at
+# linearity 0.37 (the models tests/test_gradients.py optimizes): one
+# camera, 84 frames of a 14x14 board (Nmeasurements 32935 and 32938,
+# Nstate 515 and 518)
+CAHVOR_1CAM = dict(OPENCV8_1CAM, model="LENSMODEL_CAHVOR")
+CAHVORE_1CAM = dict(OPENCV8_1CAM, model="LENSMODEL_CAHVORE_linearity=0.37")
 
 # bench.py's rig16cam configuration: a 4x4 rig of OPENCV8 cameras on a
 # 0.15 m grid, all facing the board, and 40 tame poses of a 14x14 board
@@ -173,6 +182,19 @@ def opencv8_1cam():
 def opencv8_4cam():
     """The bench's opencv8_4cam optimization_inputs."""
     return _bench_board(**OPENCV8_4CAM)
+
+
+def cahvor_1cam():
+    """opencv8_1cam's problem with the CAHVOR model: the axis and radial
+    terms start at 0 (a pinhole) and the observations come from that
+    model."""
+    return _bench_board(**CAHVOR_1CAM)
+
+
+def cahvore_1cam():
+    """opencv8_1cam's problem with the CAHVORE model at linearity 0.37,
+    its distortions starting at 0."""
+    return _bench_board(**CAHVORE_1CAM)
 
 
 def splined_30x18():

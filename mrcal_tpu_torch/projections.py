@@ -15,7 +15,7 @@ dv/dq = dv/du (dq/du)^-1 and dv/di = -dv/dq dq/di.
 import torch
 
 from . import lensmodels as _lm
-from .lensmodels import (project_core, require_ported,
+from .lensmodels import (parse_lensmodel, project_core,
                          stereographic_v_from_uv, unproject_core)
 from .poseutils import _as_tensors, _finish, _vjac
 
@@ -73,7 +73,7 @@ def project(v, lensmodel, intrinsics_data, *, get_gradients=False,
     intrinsics (...,Nintrinsics).  get_gradients: returns (q, dq_dv
     (...,2,3), dq_dintrinsics (...,2,Nintrinsics)).  Runs on the card
     unless device says otherwise."""
-    lm = require_ported(lensmodel)
+    lm = parse_lensmodel(lensmodel)
     v, intrinsics_data = _as_tensors(device, v, intrinsics_data)
     return _finish(_project(v, intrinsics_data, lm, get_gradients), out)
 
@@ -84,7 +84,7 @@ def unproject(q, lensmodel, intrinsics_data, *, normalize=False,
     vectors with normalize=True.  get_gradients: returns (v, dv_dq
     (...,3,2), dv_dintrinsics (...,3,Nintrinsics)).  Runs on the card
     unless device says otherwise."""
-    lm = require_ported(lensmodel)
+    lm = parse_lensmodel(lensmodel)
     q, intrinsics_data = _as_tensors(device, q, intrinsics_data)
     return _finish(_unproject(q, intrinsics_data, lm, normalize,
                               get_gradients), out)

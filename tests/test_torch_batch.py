@@ -31,6 +31,7 @@ from mrcal_tpu_torch.optimize import solver as tsolver
 
 from test_optimize_batch import _problems
 from test_torch_residuals import point_problem_oi
+from test_torch_residuals import torch_threads  # noqa: F401
 
 STATS_KEYS = {"rms_reproj_error__pixels", "Noutliers", "Noutliers_board",
               "Noutliers_triangulated_point", "niterations",
@@ -379,15 +380,25 @@ def test_batch_triangulated_outlier_rejection_matches_jax():
 
 
 def test_batch_raises_on_what_the_slice_does_not_cover():
-    """A splined model with its core locked (the spline-window assembly)
-    raises NotImplementedError naming ROADMAP; without a card the default
-    device raises as optimize() does."""
+    """A splined model with its core locked (the spline-window assembly,
+    raised on before it had a problem axis) now solves as a batch: two
+    units of a small 30x18-knot problem through three lockstep
+    iterations, each equal to its own three iterations of optimize() (E
+    at 1e-10, b_packed at 1e-8).  Without a card the default device
+    raises as optimize() does."""
     oi = tproblems.make_problem(
         device="cpu", Ncameras=1, Nframes=6, W=8, H=6,
         model=tproblems.SPLINED_30X18["model"],
         do_optimize_intrinsics_core=False)[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsolver.optimize_batch([oi, copy.deepcopy(oi)], device="cpu")
+    units = [oi, tproblems.perturbed_oi(oi, seed=2)]
+    kw = dict(max_iterations=3, update_threshold=1e-7)
+    stats = tsolver.optimize_batch(copy.deepcopy(units), device="cpu", **kw)
+    for st, unit in zip(stats, units):
+        alone = tsolver.optimize(device="cpu", **kw, **copy.deepcopy(unit))
+        assert st["niterations"] == alone["niterations"] == 3
+        E_b, E_1 = (float(np.sum(s["x"] ** 2)) for s in (st, alone))
+        assert abs(E_b - E_1) <= 1e-10 * E_1
+        assert np.abs(st["b_packed"] - alone["b_packed"]).max() <= 1e-8
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             mrcal_tpu_torch.optimize_batch(_problems(B=1))

@@ -32,6 +32,9 @@ import torch
 import mrcal_tpu_torch
 from mrcal_tpu_torch import problems
 
+from test_torch_residuals import share_jax_evaluations
+from test_torch_residuals import torch_threads  # noqa: F401
+
 SPLINED = "LENSMODEL_SPLINED_STEREOGRAPHIC_order=3_Nx=9_Ny=7_fov_x_deg=120"
 DIFF_TOL = 1e-8                    # px
 FIT_DIFFLEN_TOL = 1e-4             # px, at 1 m (see the module docstring)
@@ -94,6 +97,7 @@ def _jax_refs(part):
     every DIFFS case.  "other": stereo_pair_diff and
     model_resolution__deg_pixel."""
     import mrcal_tpu
+    share_jax_evaluations()
     ms = _models(mrcal_tpu)
     if part == "diff":
         return {name: _np_out(mrcal_tpu.projection_diff(
@@ -225,8 +229,26 @@ def test_cameramodel_accessors_match_jax():
     mt.extrinsics_Rt_toref(mj.extrinsics_Rt_toref())
     np.testing.assert_allclose(mt.extrinsics_rt_fromref(),
                                mj.extrinsics_rt_fromref(), atol=1e-12)
-    with pytest.raises(NotImplementedError, match="cahvor"):
-        mt.write(io.StringIO(), cahvor=True)
+    # the .cahvor format (once refused): the JAX package's lines, their
+    # numbers to roundoff (this rotation by 90 degrees leaves ~1e-13 in
+    # entries of H and V that are 0; tests/test_torch_cahvor.py compares
+    # bytes), and a model that reads back
+    ft, fj = io.StringIO(), io.StringIO()
+    mt.write(ft, cahvor=True)
+    mj.write(fj, cahvor=True)
+    lt, lj = ft.getvalue().splitlines(), fj.getvalue().splitlines()
+    assert lt[:2] == lj[:2] == ["Dimensions = 800 600",
+                                "Model = CAHV = perspective, linear"]
+    assert [l.split(" = ")[0] for l in lt] == [l.split(" = ")[0] for l in lj]
+    np.testing.assert_allclose(
+        [[float(x) for x in l.split(" = ")[1].split()] for l in lt[2:]],
+        [[float(x) for x in l.split(" = ")[1].split()] for l in lj[2:]],
+        rtol=0, atol=1e-10)
+    back = mrcal_tpu_torch.cameramodel(io.StringIO(ft.getvalue()))
+    np.testing.assert_allclose(back.intrinsics()[1], [750., 748., 399.5,
+                                                      299.5], atol=1e-9)
+    np.testing.assert_allclose(back.extrinsics_rt_fromref(),
+                               mt.extrinsics_rt_fromref(), atol=1e-10)
 
 
 OPENCV_YAML = """image_width: 1280

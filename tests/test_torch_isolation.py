@@ -1,9 +1,9 @@
 """The port stands alone: importing mrcal_tpu_torch (the splined path,
-the multi-device package and the uncertainty modules included, and
-building the splined bench problem) loads neither jax nor mrcal_tpu, and
-no module of the port (nor chip_smoke.py) imports either.  The public
-entry points of the projection and uncertainty modules run on the card
-unless told otherwise."""
+the multi-device package, the uncertainty modules, the .cahvor format and
+utils included, and building the splined bench problem) loads neither jax
+nor mrcal_tpu, and no module of the port (nor chip_smoke.py) imports
+either.  The public entry points of the projection, utils and uncertainty
+modules run on the card unless told otherwise."""
 
 import ast
 import os
@@ -37,7 +37,8 @@ def test_import_loads_no_jax():
             "mrcal_tpu_torch.convert, mrcal_tpu_torch.ops, "
             "mrcal_tpu_torch.parallel, mrcal_tpu_torch.projections, "
             "mrcal_tpu_torch.factorization, mrcal_tpu_torch.cameramodel, "
-            "mrcal_tpu_torch.model_analysis, mrcal_tpu_torch.utils; "
+            "mrcal_tpu_torch.model_analysis, mrcal_tpu_torch.utils, "
+            "mrcal_tpu_torch.cahvor; "
             "from mrcal_tpu_torch.lensmodels import splined_deltau; "
             "from mrcal_tpu_torch.optimize.solver import "
             "build_normal_equations_splined, lm_solve; "
@@ -123,6 +124,17 @@ def _entry_point_calls():
         "drt_cross_reprojection__dbpacked": (
             lambda **kw: m.drt_cross_reprojection__dbpacked(**oi, **kw),
             ()),
+        "sorted_eig": (m.sorted_eig, (np.eye(3) + 0.1,)),
+        "apply_homography": (m.apply_homography, (np.eye(3) + 0.01, q)),
+        "ingest_packed_state": (
+            lambda **kw: m.ingest_packed_state(
+                m.optimizer_callback(no_jacobian=True, device="cpu",
+                                     **oi)[0], **oi, **kw), ()),
+        "hypothesis_board_corner_positions": (
+            lambda **kw: m.hypothesis_board_corner_positions(**oi, **kw),
+            ()),
+        "measurements_board": (m.measurements_board, (oi,)),
+        "residuals_point": (m.residuals_point, (oi,)),
     }
 
 
@@ -142,7 +154,10 @@ ENTRY_POINTS = ["project", "unproject", "project_pinhole",
                 "stereo_pair_diff", "implied_Rt10__from_unprojections",
                 "is_within_valid_intrinsics_region",
                 "model_resolution__deg_pixel", "CHOLMOD_factorization",
-                "drt_cross_reprojection__dbpacked"]
+                "drt_cross_reprojection__dbpacked", "sorted_eig",
+                "apply_homography", "ingest_packed_state",
+                "hypothesis_board_corner_positions", "measurements_board",
+                "residuals_point"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -36,6 +36,8 @@ from mrcal_tpu_torch.parallel import (make_mesh,
                                       sharded_normal_equations, spawn)
 from mrcal_tpu_torch.parallel.sharding import BLOCK_KEYS, _dryrun_rank
 
+from test_torch_residuals import torch_threads  # noqa: F401
+
 SPLINED = "LENSMODEL_SPLINED_STEREOGRAPHIC_order=3_Nx=9_Ny=7_fov_x_deg=120"
 X_KEYS = ("x_board", "x_point", "x_tri", "x_reg")
 WORLDS = (2, 3)

@@ -16,6 +16,8 @@ import mrcal_tpu.poseutils as jpose
 import mrcal_tpu_torch
 from mrcal_tpu_torch import poseutils as tpose
 
+from test_torch_residuals import torch_threads  # noqa: F401
+
 rng = np.random.default_rng(11)
 R3 = rng.normal(size=(3, 3)) * 0.7
 RT3 = np.concatenate([R3, rng.normal(size=(3, 3))], axis=-1)

@@ -20,6 +20,8 @@ import mrcal_tpu_torch.poseutils as tpu
 from mrcal_tpu_torch.lensmodels import project_core as t_project_core
 from mrcal_tpu_torch import lensmodel_num_params
 
+from test_torch_residuals import torch_threads  # noqa: F401
+
 PARAMETRIC = ["LENSMODEL_PINHOLE", "LENSMODEL_STEREOGRAPHIC",
               "LENSMODEL_LONLAT", "LENSMODEL_LATLON", "LENSMODEL_OPENCV4",
               "LENSMODEL_OPENCV5", "LENSMODEL_OPENCV8", "LENSMODEL_OPENCV12"]
@@ -108,6 +110,12 @@ def _intrinsics(model, rng):
 
 @pytest.mark.parametrize("model", PARAMETRIC)
 def test_project_core_values_and_jacobians(model):
+    _check_project_core(model)
+
+
+def _check_project_core(model):
+    """Values at 1e-12 and one point's Jacobians (point, intrinsics)
+    against jax.jacrev at 1e-10."""
     rng = np.random.default_rng(4)
     v = np.concatenate([rng.normal(size=(30, 2)) * 0.4,
                         1.0 + rng.uniform(size=(30, 1))], axis=-1)
@@ -129,10 +137,10 @@ def test_project_core_values_and_jacobians(model):
 @pytest.mark.parametrize("model", ["LENSMODEL_CAHVOR",
                                    "LENSMODEL_CAHVORE_linearity=0.00"])
 def test_unported_models_raise(model):
-    n = lensmodel_num_params(model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_project_core(torch.ones(3, dtype=torch.float64),
-                       torch.ones(n, dtype=torch.float64), model)
+    """CAHVOR and CAHVORE, once refused, project as the parametric
+    families do: values and Jacobians against the JAX package (their
+    unprojection and the other linearities: tests/test_torch_cahvor.py)."""
+    _check_project_core(model)
 
 
 # ----------------------------------------------------------------------------

@@ -19,6 +19,62 @@ from mrcal_tpu_torch import convert, problems
 from test_sfm_points import make_sfm_scene
 
 
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """torch on one thread for the port's CPU tests (every port test
+    module imports this fixture).  The suite runs in parallel worker
+    processes, about one per core, and torch's default of a thread per
+    core in each of them oversubscribes the cores: the small solves ran
+    up to 10x slower in the suite than in one process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def share_jax_evaluations():
+    """In a process that computes JAX references: make the JAX package's
+    optimizer_callback and drt_cross_reprojection__dbpacked return a copy
+    of their first result for inputs with the same contents.  Its
+    uncertainty code calls each of them once per call of its own, on the
+    same solve, and each call costs seconds of eager dispatch and
+    compiles; the results are those of the first call, bit for bit."""
+    import copy
+    import functools
+    import hashlib
+    import sys
+    import mrcal_tpu.optimize.residuals
+
+    def key(args, kw):
+        h = hashlib.sha1()
+        for k, v in [(None, a) for a in args] + sorted(kw.items()):
+            h.update(repr(k).encode())
+            if isinstance(v, np.ndarray):
+                h.update(repr((v.shape, v.dtype)).encode())
+                h.update(np.ascontiguousarray(v).tobytes())
+            else:
+                h.update(repr(v).encode())
+        return h.hexdigest()
+
+    def shared(fn):
+        cache = {}
+
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            k = key(args, kw)
+            if k not in cache:
+                cache[k] = fn(*args, **kw)
+            return copy.deepcopy(cache[k])
+        return call
+
+    # (the package's `optimize` attribute is the function of that name)
+    for module, name in (("mrcal_tpu.optimize", "optimizer_callback"),
+                         ("mrcal_tpu.optimize.residuals",
+                          "drt_cross_reprojection__dbpacked")):
+        module = sys.modules[module]
+        setattr(module, name, shared(getattr(module, name)))
+
+
 def point_problem_oi():
     """A discrete-point problem as tests/test_sfm_points.py builds it,
     with noise, fixed points and the intrinsics core optimized."""

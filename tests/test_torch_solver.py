@@ -2,6 +2,7 @@
 the JAX package on __graft_entry__._make_problem()'s problem and on a
 small discrete-point problem, in float64 on the CPU."""
 
+import re
 from functools import partial
 
 import numpy as np
@@ -13,11 +14,13 @@ import jax.numpy as jnp
 
 import mrcal_tpu
 from mrcal_tpu.optimize import solver as jsolver
-from mrcal_tpu_torch import convert, problems as tproblems
+from mrcal_tpu_torch import (convert, lensmodel_num_params,
+                             problems as tproblems)
 from mrcal_tpu_torch import optimize as t_optimize
 from mrcal_tpu_torch.optimize import solver as tsolver
 
 from test_torch_residuals import point_problem_oi
+from test_torch_residuals import torch_threads  # noqa: F401
 
 
 def _copy(oi):
@@ -216,12 +219,124 @@ def test_optimize_without_device_needs_a_card(problems):
     dict(lensmodel="LENSMODEL_CAHVORE_linearity=0.00"),
     dict(verbose=True),
     dict(lensmodel="LENSMODEL_CAHVOR")])
-def test_optimize_raises_on_what_the_slice_does_not_cover(problems, option):
+def test_optimize_raises_on_what_the_slice_does_not_cover(problems, option,
+                                                          capsys):
+    """What optimize() and optimize_batch() used to refuse now runs:
+    CAHVORE and CAHVOR (from a pinhole-equivalent start: axis and radial
+    terms 0) solve to a finite optimum, optimize() and a batch of one
+    agreeing on E to 1e-10; verbose=True prints optimize()'s iteration
+    lines (optimize_batch, as the JAX package's, prints none)."""
     oi = _copy(problems["board"].oi)
     if "lensmodel" in option:
-        oi["intrinsics"] = np.zeros((2, 9))
+        n = lensmodel_num_params(option["lensmodel"])
+        oi["intrinsics"] = np.concatenate(
+            [oi["intrinsics"][:, :4], np.zeros((2, n - 4))], axis=1)
     oi.update(option)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_optimize(device="cpu", **oi)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsolver.optimize_batch([oi])
+    kw = dict(update_threshold=1e-7, max_iterations=8)
+    alone = t_optimize(device="cpu", **kw, **_copy(oi))
+    lines = capsys.readouterr().out.splitlines()
+    batch = tsolver.optimize_batch([_copy(oi)], device="cpu", **kw)[0]
+    assert capsys.readouterr().out == ""
+    assert np.isfinite(alone["x"]).all()
+    E_1, E_b = (float(np.sum(s["x"] ** 2)) for s in (alone, batch))
+    assert abs(E_b - E_1) <= 1e-10 * E_1
+    if option.get("verbose"):
+        assert len(lines) >= alone["niterations"]
+        assert all(l.startswith(f"iter {i}: E=")
+                   for i, l in enumerate(lines[:alone["niterations"]]))
+    else:
+        assert lines == []
+
+
+ITER_LINE = re.compile(r"iter (\d+): E=(\S+) Enew=(\S+) lam=(\S+) rho=(\S+) "
+                       r"\|db\|=(\S+)$")
+
+
+def _recorded_E(monkeypatch):
+    """Every normal-equation E the JAX package's host loop evaluates, in
+    order (the starting point's, then each trial's): a debug callback in
+    its jitted normal equations."""
+    seen = []
+    build = jsolver.build_normal_equations
+
+    def recording(*args, **kw):
+        f = build(*args, **kw)
+
+        def g(b, arrays):
+            out = f(b, arrays)
+            jax.debug.callback(lambda e: seen.append(float(e)), out["E"])
+            return out
+        return g
+    monkeypatch.setattr(jsolver, "build_normal_equations", recording)
+    return seen
+
+
+@pytest.mark.parametrize("outliers", [False, True])
+def test_verbose_prints_the_jax_lines(problems, outliers, capsys,
+                                      monkeypatch):
+    """optimize(verbose=True) prints the JAX host loop's lines in its
+    format: one per iteration, whose first 10 E and trial E agree with the
+    JAX package's at 1e-8, and (with four corners moved 30 px) one per
+    outlier pass that marks something, the same counts.  Without verbose
+    the loop reads the device once per iteration, and prints nothing."""
+    oi = _copy(problems["board"].oi)
+    if outliers:
+        oi["observations_board"][[1, 3, 5, 6], 2, 3, :2] += 30.0
+    port_E = []
+    print_iteration = tsolver._print_iteration
+    monkeypatch.setattr(tsolver, "_print_iteration", lambda it, E, E_try,
+                        *a: (port_E.append((float(E), float(E_try))),
+                             print_iteration(it, E, E_try, *a)))
+    s_t = t_optimize(device="cpu", verbose=True, **_copy(oi))
+    out_t = capsys.readouterr().out.splitlines()
+    jax_E = _recorded_E(monkeypatch)
+    s_j = mrcal_tpu.optimize(verbose=True, precision="f64", **_copy(oi))
+    out_j = capsys.readouterr().out.splitlines()
+
+    its_t = [l for l in out_t if l.startswith("iter ")]
+    its_j = [l for l in out_j if l.startswith("iter ")]
+    assert all(ITER_LINE.match(l) for l in its_t) and len(its_t) >= 10
+    assert len(its_t) == s_t["niterations"]
+    assert [l.split(":")[0] for l in its_t[:10]] == \
+        [f"iter {i}" for i in range(10)]
+    # the JAX loop evaluates E at its start, then each iteration's trial
+    _close(port_E[0][0], jax_E[0], 1e-8)
+    _close(np.array([e for _, e in port_E[:10]]), np.array(jax_E[1:11]),
+           1e-8)
+    for lt, lj in zip(its_t[:10], its_j[:10]):
+        mt, mj = ITER_LINE.match(lt), ITER_LINE.match(lj)
+        _close(float(mt[2]), float(mj[2]), 1e-6)
+        _close(float(mt[3]), float(mj[3]), 1e-6)
+    marks_t = [l for l in out_t if l.startswith("marked")]
+    marks_j = [l for l in out_j if l.startswith("marked")]
+    assert marks_t == marks_j
+    assert bool(marks_t) == outliers
+    assert s_t["Noutliers"] == s_j["Noutliers"] == (4 if outliers else 0)
+
+    # one host read per iteration without verbose
+    reads = []
+    item = torch.Tensor.item
+    monkeypatch.setattr(torch.Tensor, "item",
+                        lambda t: (reads.append(1), item(t))[1])
+    s_q = t_optimize(device="cpu", **_copy(oi))
+    assert capsys.readouterr().out == ""
+    assert len(reads) == s_q["niterations"]
+
+
+def test_check_gradient_verbose_prints_each_column(capsys):
+    """optimize(check_gradient=True, verbose=True) prints the JAX
+    package's line for every column it checks; the worst line is the
+    report's."""
+    oi = tproblems.make_problem(Ncameras=1, Nframes=3, W=4, H=3,
+                                device="cpu")[0]
+    report = t_optimize(device="cpu", check_gradient=True, verbose=True,
+                        **oi)
+    lines = capsys.readouterr().out.splitlines()
+    pat = re.compile(r"check_gradient: ivar (\d+): max \|J_ad - J_num\| = "
+                     r"(\S+) \(relative (\S+)\)$")
+    got = [pat.match(l) for l in lines]
+    assert all(got) and len(got) == report["ncols_checked"]
+    worst = max(got, key=lambda m: float(m[3]))
+    assert int(worst[1]) == report["worst_ivar"]
+    assert float(worst[3]) == pytest.approx(report["worst_relative_error"],
+                                            rel=1e-3)

@@ -28,6 +28,8 @@ from mrcal_tpu_torch import optimizer_callback as t_optimizer_callback
 from mrcal_tpu_torch.optimize import residuals as tres
 from mrcal_tpu_torch.optimize import solver as tsolver
 
+from test_torch_residuals import torch_threads  # noqa: F401
+
 MODEL3 = "LENSMODEL_SPLINED_STEREOGRAPHIC_order=3_Nx=9_Ny=7_fov_x_deg=120"
 MODEL2 = "LENSMODEL_SPLINED_STEREOGRAPHIC_order=2_Nx=8_Ny=6_fov_x_deg=100"
 MODELS = [MODEL3, MODEL2]

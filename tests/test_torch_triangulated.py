@@ -46,6 +46,7 @@ from mrcal_tpu_torch.optimize import residuals as tres
 from mrcal_tpu_torch.optimize import solver as tsolver
 
 from test_torch_residuals import point_problem_oi
+from test_torch_residuals import torch_threads  # noqa: F401
 
 T = torch.as_tensor
 

@@ -36,7 +36,8 @@ from mrcal_tpu_torch import problems
 from mrcal_tpu_torch.optimize.jacobian import optimizer_callback
 from mrcal_tpu_torch.optimize.layout import spec_from_inputs
 
-from test_torch_residuals import point_problem_oi
+from test_torch_residuals import point_problem_oi, share_jax_evaluations
+from test_torch_residuals import torch_threads  # noqa: F401
 
 SPLINED = "LENSMODEL_SPLINED_STEREOGRAPHIC_order=3_Nx=9_Ny=7_fov_x_deg=120"
 METHODS = ("mean-pcam", "cross-reprojection-rrp-Jfp",
@@ -124,6 +125,7 @@ def _jax_refs(names):
     the API too."""
     import mrcal_tpu
     from mrcal_tpu.model_analysis import worst_direction_stdev
+    share_jax_evaluations()
     refs = {}
     for name in names:
         oi, icam, methods = problem(name)
