@@ -16,8 +16,9 @@ nonzero:
    the factor-then-solve checks (f64 and f32, n=6 and n=3, a ragged
    batch, a non-SPD block, a cond-1e6 f32 batch), then the fused
    cholesky_factor_solve and the solve at the Schur step's shapes
-   (opencv8_1cam, opencv8_4cam, rig16cam, splined_30x18's K = 1083), a
-   ragged B, K past a warp, B = 0 and a large-B sweep, f64 and f32.
+   (opencv8_1cam, opencv8_4cam, rig16cam, splined_30x18's K = 1083,
+   stereo_opencv8_2cam's K = 33), a ragged B, K past a warp, B = 0 and a
+   large-B sweep, f64 and f32.
 4. main path: the bench's opencv8_1cam calibration (LENSMODEL_OPENCV8, one
    camera, 84 frames of a 14x14 board; 32938 measurements, 518 states),
    perturbed as bench._perturbed_oi(seed=1), solved by optimize() on the
@@ -86,6 +87,23 @@ nonzero:
    the same call on the CPU (UNC_* and DIFF_* tolerances) and prints its
    warm wall time on the card, split into J, factor, F's Jacobian and
    propagation, beside the CPU's.
+   stereo_opencv8_2cam: two OPENCV8 cameras 0.22 m apart and 84 frames
+   of a 14x14 board that both see whole (65876 measurements, 536
+   states), made by synthetic_data on the card (held to the same build
+   on the CPU, 1e-9 px); a timed f64 solve held to the JAX package's f64
+   rms, 0.29857396040360784 px +- 1e-6, reached within 15 + 3 iterations
+   (a solve capped there) in 12-24 iterations (where the roundoff tail
+   stops differs, see STEREO_NITER; the tails of the card's and the
+   CPU's trajectories are printed), the fused kernel at (84, 6, 33) and
+   one back-substitution per iteration; the
+   solved models triangulate 500 features (drawn from default_rng(5) at
+   1-10 m, 0.3 px of noise) with calibration and observation noise
+   (Var_cal (500, 3, 500, 3); the warm wall split into its stages, and
+   dp/db timed in forward and in reverse mode at 500 and at 5 points),
+   and every pixel of camera 0 against a tilted plane
+   (480000 pairs; the default method and Lindstrom's), each against the
+   CPU in the same process: p to 1e-9 m, the covariances to 1e-7 of
+   their largest entry, the dense points to 1e-10 of their range.
 6. mesh: the multi-device path (mrcal_tpu_torch.parallel), the
    observations sharded over a torch.distributed group.
    nccl1: a one-rank NCCL group (a file store in a temporary directory,
@@ -215,6 +233,38 @@ CHECK_GRADIENT_ABS_TOL = 1e-10
 # the two-view wrappers, rotate_point_R and unproject_core on the card
 # against the CPU, to this much of each output's largest entry
 TRIANGULATE_REL_TOL = 1e-12
+# stereo_opencv8_2cam: the JAX package's converged f64 rms and iterations
+# on the CPU (tests/jax_target_stereo_opencv8_2cam.py; PERF.md section 2).
+# The card's trajectory is the JAX package's through iteration 12; from
+# iteration 13 on (steps of 1.4e-6 and less) the predicted decrease is
+# below E's roundoff, and where the LM rules stop follows it: the JAX
+# package stops after 15 iterations, the port after 20 on the card's host
+# CPU and STEREO_NITER_CARD on the card, all at the same rms to 1e-15 (PERF.md
+# section 6; the phase prints the tail of both trajectories).  So the
+# solve is held to reach the rms within 15 + 3 iterations (a solve capped
+# there), and to take 15 - 3 to STEREO_NITER_CARD + 3
+STEREO_F64_RMS = 0.29857396040360784
+STEREO_F64_RMS_TOL = 1e-6
+STEREO_NITER = 15
+STEREO_NITER_CARD = 21
+# the LM iterations from which the phase prints the trajectories of the
+# card and the CPU
+STEREO_TAIL_FROM = 11
+# its problem built on the card against the CPU (px)
+STEREO_BUILD_PX_TOL = 1e-9
+# triangulate() on the card against the CPU: the points (m), the
+# covariances to this much of their largest entry (projection_uncertainty's
+# gate), and the dense pairs' points relative to each point's range
+STEREO_FEATURES = 500
+# dp/db in either mode of torch.func is timed at STEREO_FEATURES points and
+# at the first this many (a handful, as mrcal-triangulate gives)
+STEREO_FEW = 5
+STEREO_P_TOL = 1e-9
+STEREO_COV_TOL = 1e-7
+STEREO_DENSE_RTOL = 1e-10
+# the dense pairs: every pixel of camera 0 on a plane this far from it
+# (m), tilted by this much about camera 0's y axis
+STEREO_PLANE = (2.0, 20.0)
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 # non-tensor-core FP64 / FP32 rates
@@ -467,11 +517,13 @@ SPLINED_FLEET_SHAPES = [(SPLINED_FLEET_P * 84, 6, 1083),
 # CAHVOR: 9 intrinsics and the warp, K = 9 + 2 + 1; CAHVORE: 12 + 2 + 1,
 # the main path's K = 15
 CAHVOR_SHAPES = [(84, 6, 12)]
+# stereo_opencv8_2cam: 2*12 intrinsics, 6 extrinsics and the warp, K = 33
+STEREO_SHAPES = [(84, 6, 33)]
 LARGE_SHAPES = [(1 << 20, 3, 4), (1 << 18, 6, 15), (1 << 20, 3, 1),
                 (1 << 18, 6, 1)]
 CHECK_SHAPES = (MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES + SPLINED_SHAPES
                 + ODD_SHAPES + FLEET_SHAPES + RIG16_BATCH_SHAPES
-                + SPLINED_FLEET_SHAPES + CAHVOR_SHAPES
+                + SPLINED_FLEET_SHAPES + CAHVOR_SHAPES + STEREO_SHAPES
                 + [(131, 6, 33), (131, 3, 4), (0, 6, 15), (70000, 6, 0)]
                 + LARGE_SHAPES)
 
@@ -557,7 +609,7 @@ def time_kernels(torch, card):
                                + SPLINED_SHAPES + ODD_SHAPES[:1]
                                + FLEET_SHAPES + RIG16_BATCH_SHAPES
                                + SPLINED_FLEET_SHAPES[:1] + CAHVOR_SHAPES
-                               + LARGE_SHAPES),
+                               + STEREO_SHAPES + LARGE_SHAPES),
         cholesky_solve_factored=(MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
                                  + ODD_SHAPES[1:] + FLEET_SHAPES
                                  + RIG16_BATCH_SHAPES
@@ -1838,6 +1890,289 @@ def phase_uncertainty(torch, oi_main, oi_4cam, oi_splined):
                 conditioning=conditioning, wall_s=wall)
 
 
+def stereo_features(torch, models, rng, n):
+    """n features seen by both cameras: pixels of camera 0 drawn from rng
+    at ranges of 1-10 m, kept where camera 1 sees them too, projected by
+    the models, with 0.3 px of noise from rng: q (n, 2 cameras, 2), on
+    the CPU."""
+    from mrcal_tpu_torch import (compose_rt, invert_rt, project,
+                                 transform_point_rt, unproject)
+    m0, m1 = models
+    W, H = m0.imagersize()
+    rt10 = compose_rt(m1.rt_cam_ref(), invert_rt(m0.rt_cam_ref(),
+                                                 device="cpu"), device="cpu")
+    q0, q1 = np.zeros((0, 2)), np.zeros((0, 2))
+    while len(q0) < n:
+        q = rng.uniform(0, 1, (4 * n, 2)) * [W - 1, H - 1]
+        p0 = unproject(q, *m0.intrinsics(), normalize=True, device="cpu") \
+            * torch.as_tensor(rng.uniform(1.0, 10.0, (4 * n, 1)))
+        p1 = transform_point_rt(rt10, p0, device="cpu")
+        q_1 = project(p1, *m1.intrinsics(), device="cpu").numpy()
+        seen = ((p1[:, 2] > 0).numpy() & (q_1[:, 0] >= 0)
+                & (q_1[:, 0] <= W - 1) & (q_1[:, 1] >= 0)
+                & (q_1[:, 1] <= H - 1))
+        q0 = np.concatenate([q0, q[seen]])
+        q1 = np.concatenate([q1, q_1[seen]])
+    q = np.stack([q0[:n], q1[:n]], axis=-2)
+    return q + rng.normal(0.0, 0.3, q.shape)
+
+
+def stereo_dense(torch, models):
+    """Every pixel of camera 0 (q0), and q1: where camera 1 sees the
+    point of a plane STEREO_PLANE[0] m from camera 0, tilted by
+    STEREO_PLANE[1] degrees about its y axis, that q0 sees.  Made on the
+    card, returned on the CPU: (W*H, 2 cameras, 2)."""
+    from mrcal_tpu_torch import (compose_rt, invert_rt, project,
+                                 sample_imager, transform_point_rt,
+                                 unproject)
+    m0, m1 = models
+    W, H = m0.imagersize()
+    q0 = sample_imager(W, H, W, H).reshape(-1, 2)    # every pixel
+    v0 = unproject(q0, *m0.intrinsics())
+    d, tilt = STEREO_PLANE[0], np.radians(STEREO_PLANE[1])
+    n = torch.tensor([np.sin(tilt), 0.0, np.cos(tilt)], dtype=v0.dtype,
+                     device=v0.device)
+    p0 = v0 * (d / (v0 @ n))[:, None]
+    rt10 = compose_rt(m1.rt_cam_ref(), invert_rt(m0.rt_cam_ref()))
+    q1 = project(transform_point_rt(rt10, p0), *m1.intrinsics())
+    return torch.stack([q0, q1], dim=-2).cpu()
+
+
+def lm_tails(torch, phase, oi):
+    """oi's f64 solve traced from LM iteration STEREO_TAIL_FROM on, twice
+    on the card and once on the CPU: each iteration's E, its trial's
+    E_try - E as computed, the predicted decrease, lambda and the largest
+    step (read where the verbose solve prints its line); and the
+    roundoff of E = sum x^2 at the solution, as each device sums it,
+    against math.fsum.  Logs them and returns them."""
+    import math
+    from mrcal_tpu_torch import optimize
+    from mrcal_tpu_torch.optimize import solver
+
+    def trace(device):
+        rows = []
+
+        def record(it, E, E_try, pred, lam, db):
+            if it >= STEREO_TAIL_FROM:
+                rows.append([it] + torch.stack(
+                    [E, E_try - E, pred, lam, db.abs().max()]).tolist())
+        printer, solver._print_iteration = solver._print_iteration, record
+        try:
+            stats = optimize(precision="f64", verbose=True, device=device,
+                             **dict(SOLVE_KW, **_copy(oi)))
+        finally:
+            solver._print_iteration = printer
+        x = np.asarray(stats["x"], np.float64)
+        exact = math.fsum(x * x)
+        roundoff = {d: float(torch.sum(torch.as_tensor(x, device=d) ** 2))
+                    - exact for d in ("cuda", "cpu")}
+        return dict(niterations=stats["niterations"], rows=rows,
+                    E_roundoff=roundoff)
+
+    tails = {}
+    for label, device in (("card 1", "cuda"), ("card 2", "cuda"),
+                          ("CPU", "cpu")):
+        t = tails[label] = trace(device)
+        log(f"[{phase}] LM tail, {label}: {t['niterations']} iterations; "
+            f"at the solution sum x^2 - fsum: card "
+            f"{t['E_roundoff']['cuda']:.3e}, CPU "
+            f"{t['E_roundoff']['cpu']:.3e}")
+        for it, E, dE, pred, lam, db in t["rows"]:
+            log(f"[{phase}]   {label} iteration {it}: E {E!r} E_try - E "
+                f"{dE:.3e} pred {pred:.3e} lambda {lam:.3e} |db| {db:.3e} "
+                f"{'accepted' if dE < 0 else 'rejected'}")
+    return tails
+
+
+def triangulate_split(torch, q, models, kw):
+    """One triangulate() call with both noises on the card, stage by
+    stage as it runs them: the unprojections, their linearizations,
+    Var_obs, J (the solve's upload, its Jacobian's triplets and the dense
+    J), the factor (JtJ's, from J's QR), dp/db and the propagation (the
+    solve, Jobs A and its product), seconds each.  Then dp/db in forward
+    and in reverse mode of torch.func, warm, at these points and at the
+    first STEREO_FEW, with the peak memory of each at all the points."""
+    from mrcal_tpu_torch import model_analysis as ma
+    from mrcal_tpu_torch import triangulation as tri
+    q2 = torch.as_tensor(q, device="cuda").reshape(-1, 2, 2)
+    core = tri._leecivera_mid2
+    out = {}
+    cams = [tri._model_tensors(m, q2.device) for m in models]
+    v, out["unproject_s"] = _sync_time(torch, lambda: [
+        tri.unproject_core(q2[:, i], intr, lm)
+        for i, (lm, intr, _) in enumerate(cams)])
+    lins, out["linearize_s"] = _sync_time(torch, lambda: [
+        tri._linearization(q2[:, i], intr, lm, v[i])
+        for i, (lm, intr, _) in enumerate(cams)])
+    Rt01 = tri._compose_Rt2(cams[0][2], tri._invert_Rt(cams[1][2]))
+    _, out["Var_obs_s"] = _sync_time(torch, lambda: tri._Var_observation(
+        q2, cams, lins, Rt01, core, kw["q_observation_stdev"],
+        kw["q_observation_stdev_correlation"]))
+    prob, out["J_s"] = _sync_time(torch, lambda: ma._Solved(
+        models[0].optimization_inputs(), q2.device))
+    _, dt = _sync_time(torch, lambda: prob.J)
+    out["J_s"] += dt
+    _, out["factor_s"] = _sync_time(torch, lambda: prob.factorization)
+    icams = tri._stationary_cameras(prob.kw, models)
+    dp, out["dp_db_s"] = _sync_time(torch, lambda: tri._dp_db(
+        prob, q2, icams, core, True, lins))
+    _, out["propagate_s"] = _sync_time(torch, lambda: ma._propagate(
+        prob, dp.reshape(dp.shape[0] * 3, -1), kw["q_calibration_stdev"]))
+
+    modes = {}
+    for n in (q2.shape[0], STEREO_FEW):
+        qn = q2[:n]
+        F = tri._dp_db_map(prob, qn, icams, core, True, [
+            tri._linearization(qn[:, i], intr, lm)
+            for i, (lm, intr, _) in enumerate(cams)])
+        db0 = prob.b.new_zeros(prob.spec.Nstate)
+        for name in ("jacfwd", "jacrev"):
+            jac = getattr(torch.func, name)(F)
+            jac(db0)
+            torch.cuda.reset_peak_memory_stats()
+            J, dt = _sync_time(torch, lambda: jac(db0))
+            modes[f"{name} {n}"] = dict(
+                ms=dt * 1e3, peak_bytes=torch.cuda.max_memory_allocated(),
+                rel_err_vs_dp_db=rel_err(J[:n].cpu(), dp[:n].cpu()))
+    out["modes"] = modes
+    return out
+
+
+def phase_stereo(torch):
+    """stereo_opencv8_2cam: the problem built by synthetic_data on the card
+    against the CPU; the f64 solve held to the JAX package's rms and
+    iterations, the fused kernel at (84, 6, 33) and one back-substitution
+    per iteration; then the solved models triangulate STEREO_FEATURES
+    features with their calibration and observation uncertainty, and
+    every pixel of camera 0 against a plane (the default method and
+    Lindstrom's), each on the card against the CPU."""
+    from mrcal_tpu_torch import (cameramodel, optimize, problems,
+                                 triangulate, triangulate_lindstrom)
+    phase = "stereo_opencv8_2cam"
+    t_phase = time.perf_counter()
+    oi, wall_build = _sync_time(torch, problems.stereo_opencv8_2cam)
+    oi_cpu = problems.stereo_opencv8_2cam(device="cpu")
+    build_px = float(np.abs(oi["observations_board"]
+                            - oi_cpu["observations_board"]).max())
+    same = all(np.array_equal(oi[k], oi_cpu[k]) for k in oi
+               if k != "observations_board" and isinstance(oi[k],
+                                                            np.ndarray))
+    log(f"[{phase}] built on the card in {wall_build:.3f} s: "
+        f"{len(oi['frames_rt_toref'])} frames; observations card vs CPU "
+        f"{build_px:.3e} px (tol {STEREO_BUILD_PX_TOL:g}), the other arrays "
+        f"{'equal' if same else 'DIFFERENT'}")
+    if not (same and build_px <= STEREO_BUILD_PX_TOL):
+        fail(f"[{phase}] the problem built on the card differs from the "
+             "CPU's")
+
+    oi, f64 = timed_solve(torch, phase, oi, (65876, 536), STEREO_F64_RMS,
+                          STEREO_F64_RMS_TOL, (STEREO_NITER - 3,
+                                               STEREO_NITER_CARD + 3))
+    capped = optimize(precision="f64", **dict(
+        SOLVE_KW, max_iterations=STEREO_NITER + 3), **_copy(oi))
+    f64["rms_after_niter_plus_3"] = capped["rms_reproj_error__pixels"]
+    log(f"[{phase}] f64 capped at {STEREO_NITER + 3} iterations: rms "
+        f"{f64['rms_after_niter_plus_3']!r} px (tol {STEREO_F64_RMS_TOL:g})")
+    if not abs(f64["rms_after_niter_plus_3"] - STEREO_F64_RMS) <= \
+            STEREO_F64_RMS_TOL:
+        fail(f"[{phase}] the solve does not reach the JAX package's rms in "
+             f"{STEREO_NITER + 3} iterations")
+    f64["tail"] = lm_tails(torch, phase, oi)
+    with KernelShapes() as ks:
+        solved = _solved(oi)
+    shapes = {k: sorted(set(v)) for k, v in ks.shapes.items()}
+    log(f"[{phase}] the kernels ran at {shapes}")
+    B, n, K = STEREO_SHAPES[0]
+    if f64["fused_K"] != K or shapes != {
+            "cholesky_factor_solve": [(B, n, K)],
+            "cholesky_solve_factored": [(B, n, 1)]}:
+        fail(f"[{phase}] the kernels ran at {shapes}, K {f64['fused_K']}")
+    models = [cameramodel(optimization_inputs=solved, icam_intrinsics=i)
+              for i in (0, 1)]
+
+    # features with their uncertainty
+    q = stereo_features(torch, models, np.random.default_rng(5),
+                        STEREO_FEATURES)
+    kw = dict(q_calibration_stdev=0.3, q_observation_stdev=0.3,
+              q_observation_stdev_correlation=0.1)
+    triangulate(q, models, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    got, wall = _sync_time(torch, lambda: triangulate(q, models, **kw))
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    want = triangulate(q, models, device="cpu", **kw)
+    wall_cpu = time.perf_counter() - t0
+    if not all(g.device.type == "cuda" and torch.isfinite(g).all()
+               and g.shape == w.shape for g, w in zip(got, want)):
+        fail(f"[{phase}] triangulate: not finite on the card in the CPU's "
+             "shapes")
+    got = [g.cpu() for g in got]
+    err_p = float((got[0] - want[0]).abs().max())
+    errs = [rel_err(g, w) for g, w in zip(got[1:], want[1:])]
+    split = triangulate_split(torch, q, models, kw)
+    # each point's own covariance, (N, 3, 3), and its worst direction
+    blocks = torch.diagonal(want[3], dim1=0, dim2=2).permute(2, 0, 1)
+    worst = float(torch.linalg.eigvalsh(blocks)[:, -1].sqrt().max())
+    stages = ("unproject", "linearize", "Var_obs", "J", "factor", "dp_db",
+              "propagate")
+    rest = wall - sum(split[k + "_s"] for k in stages)
+    log(f"[{phase}] triangulate {STEREO_FEATURES} features (Var_cal "
+        f"{tuple(want[1].shape)}): card {wall * 1e3:.2f} ms warm ("
+        + ", ".join(f"{k} {split[k + '_s'] * 1e3:.2f}" for k in stages)
+        + f", the rest {rest * 1e3:.2f} ms), peak {peak / 2**30:.3f} GiB; "
+        f"CPU {wall_cpu * 1e3:.1f} ms; card vs CPU: p {err_p:.3e} m (tol "
+        f"{STEREO_P_TOL:g}), Var_cal {errs[0]:.3e}, Var_obs {errs[1]:.3e}, "
+        f"Var_joint {errs[2]:.3e} of the largest entry (tol "
+        f"{STEREO_COV_TOL:g}); depth {float(want[0][:, 2].min()):.2f}-"
+        f"{float(want[0][:, 2].max()):.2f} m, worst stdev (joint) "
+        f"{worst:.4f} m")
+    for k, m in split["modes"].items():
+        log(f"[{phase}] dp/db by torch.func.{k} points: {m['ms']:.2f} ms "
+            f"warm, peak {m['peak_bytes'] / 2**30:.3f} GiB, against "
+            f"_dp_db {m['rel_err_vs_dp_db']:.3e} of its largest entry")
+    if max(m["rel_err_vs_dp_db"] for m in split["modes"].values()) > \
+            STEREO_COV_TOL:
+        fail(f"[{phase}] dp/db: the two modes of torch.func disagree")
+    if not (err_p <= STEREO_P_TOL and all(e <= STEREO_COV_TOL
+                                          for e in errs)):
+        fail(f"[{phase}] triangulate: the card and the CPU disagree")
+    features = dict(N=STEREO_FEATURES, wall_s=wall, wall_cpu_s=wall_cpu,
+                    peak_bytes=peak, err_p_m=err_p, err_Var_cal=errs[0],
+                    err_Var_obs=errs[1], err_Var_joint=errs[2],
+                    worst_stdev_m=worst, rest_s=rest, **split)
+
+    # every pixel of camera 0, p only
+    qd = stereo_dense(torch, models)
+    dense = {}
+    for label, method in (("leecivera_mid2", None),
+                          ("lindstrom", triangulate_lindstrom)):
+        triangulate(qd, models, method=method)
+        p_g, wall = _sync_time(torch, lambda: triangulate(qd, models,
+                                                          method=method))
+        t0 = time.perf_counter()
+        p_c = triangulate(qd, models, method=method, device="cpu")
+        wall_cpu = time.perf_counter() - t0
+        rng_c = torch.linalg.vector_norm(p_c, dim=-1)
+        err = float(((p_g.cpu() - p_c).abs().max(dim=-1).values
+                     / rng_c.clamp_min(1e-300)).max())
+        nzero = int((rng_c == 0).sum())
+        log(f"[{phase}] triangulate {qd.shape[0]} pixel pairs ({label}): "
+            f"card {wall * 1e3:.2f} ms, CPU {wall_cpu * 1e3:.1f} ms; card "
+            f"vs CPU {err:.3e} of each point's range (tol "
+            f"{STEREO_DENSE_RTOL:g}); {nzero} without a point; range "
+            f"median {float(rng_c.median()):.4f} m")
+        if not (p_g.device.type == "cuda" and torch.isfinite(p_g).all()
+                and err <= STEREO_DENSE_RTOL):
+            fail(f"[{phase}] dense triangulate ({label}): the card and the "
+                 "CPU disagree")
+        dense[label] = dict(N=qd.shape[0], wall_s=wall, wall_cpu_s=wall_cpu,
+                            rel_err=err, without_point=nzero)
+    f64.update(build_s=wall_build, build_px=build_px, features=features,
+               dense=dense, wall_phase_s=time.perf_counter() - t_phase)
+    log(f"[{phase}] phase {f64['wall_phase_s']:.1f} s")
+    return oi, f64
+
+
 def phase_profile(torch, phase, oi, ms_per_iteration):
     """Where the time of the f64 solve goes: its first PROFILE_ITERATIONS
     iterations once more, under torch.profiler; device time by kernel,
@@ -1961,6 +2296,8 @@ def main():
                                     others["opencv8_4cam"][0],
                                     others["splined_30x18"][0])
     stamp("uncertainty")
+    others["stereo_opencv8_2cam"] = phase_stereo(torch)
+    stamp("stereo_opencv8_2cam")
     entries, main_path["launch_floor"] = time_kernels(torch, card)
     stamp("kernel times")
     main_path["profile"], per_launch = phase_profile(

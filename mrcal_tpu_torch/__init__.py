@@ -11,7 +11,8 @@ LM loop, ``optimize()`` (with ``check_gradient``), batched solves
 ``project``/``unproject``, ``cameramodel`` (with the JPL .cahvor format),
 ``CHOLMOD_factorization``, the uncertainty of a calibration
 (``projection_uncertainty``, ``projection_diff`` and the rest of
-``model_analysis``) and the helpers of ``utils``.  Every lens model of the
+``model_analysis``), ``triangulate`` with the uncertainty of its points,
+the synthetic scenes of ``synthetic_data`` and the helpers of ``utils``.  Every lens model of the
 JAX package projects: the parametric ones, CAHVOR, CAHVORE and the splined
 one.
 
@@ -65,7 +66,14 @@ from .projections import (  # noqa: F401
     project_stereographic, unproject, unproject_latlon, unproject_lonlat,
     unproject_pinhole, unproject_stereographic,
 )
+from .synthetic_data import (  # noqa: F401
+    make_perfect_observations,
+    make_tracks,
+    ref_calibration_object,
+    synthesize_board_observations,
+)
 from .triangulation import (  # noqa: F401
+    triangulate,
     triangulate_geometric,
     triangulate_leecivera_l1,
     triangulate_leecivera_linf,

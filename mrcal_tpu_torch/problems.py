@@ -2,20 +2,23 @@
 
 Ports the JAX package's problem builders so that the port's own tools
 (``chip_smoke.py``) can make the bench problems: ``make_problem`` is
-``__graft_entry__._make_problem``, ``make_perfect_observations`` is
-``synthetic_data.make_perfect_observations`` (board and point branches),
+``__graft_entry__._make_problem`` (``make_perfect_observations`` is
+``synthetic_data``'s, imported here for the callers of this module),
 ``perturbed_oi`` is ``bench._perturbed_oi``, and ``opencv8_1cam``,
 ``opencv8_4cam``, ``splined_30x18``, ``rig16cam`` and ``sfm_triangulated``
 are the bench's configurations of those names; ``cahvor_1cam`` and
 ``cahvore_1cam`` are opencv8_1cam's with the CAHVOR and CAHVORE
-models.
+models.  ``stereo_opencv8_2cam`` is a two-camera OPENCV8 rig calibrated
+from a chessboard dance made by ``synthetic_data``, as the JAX package's
+tests make their scenes.
 
 The builders draw from the GLOBAL numpy RNG in exactly the JAX package's
 order (``np.random.seed(0)``, then ``randn`` for the frames, then ``randn``
 for the observation noise; for sfm_triangulated ``uniform`` three times
 for the points, then ``randn`` per observation), so the problems are
 identical to the JAX package's.  Their arithmetic runs on the CPU in
-float64: the output is numpy.
+float64 (``stereo_opencv8_2cam``'s projections on the card unless it is
+given ``device="cpu"``): the output is numpy.
 """
 
 import copy
@@ -23,12 +26,11 @@ import copy
 import numpy as np
 import torch
 
-from . import convert
+from . import convert, synthetic_data
+from .cameramodel import cameramodel
 from .lensmodels import lensmodel_num_params, project_core
-from .optimize.layout import spec_from_inputs
-from .optimize.residuals import (arrays_from_inputs, board_points_ref,
-                                 params_from_arrays)
-from .poseutils import _compose_rt2, _transform_point_rt
+from .poseutils import _rt_from_Rt, _transform_point_rt
+from .synthetic_data import make_perfect_observations
 
 _CPU = torch.device("cpu")
 
@@ -63,47 +65,13 @@ CAHVORE_1CAM = dict(OPENCV8_1CAM, model="LENSMODEL_CAHVORE_linearity=0.37")
 RIG16CAM = dict(Ncameras=16, Nframes=40, model="LENSMODEL_OPENCV8", W=14,
                 H=14)
 
-
-def make_perfect_observations(optimization_inputs, *,
-                              observed_pixel_uncertainty=None):
-    """Overwrite the observations in optimization_inputs with perfect
-    reprojections of the current solution, optionally adding gaussian pixel
-    noise from the global numpy RNG."""
-    spec = spec_from_inputs(**optimization_inputs)
-    arrays = arrays_from_inputs(optimization_inputs, device=_CPU)
-    params = params_from_arrays(arrays)
-    ext = torch.cat([torch.zeros((1, 6), dtype=torch.float64),
-                     params["extrinsics"]], dim=0)
-
-    if spec.Nobservations_board:
-        obs = np.asarray(optimization_inputs["observations_board"])
-        idx = np.asarray(
-            optimization_inputs["indices_frame_camintrinsics_camextrinsics"])
-        ifr, ici, ice = (torch.as_tensor(idx[:, i], dtype=torch.int64)
-                         for i in range(3))
-        rt_joint = _compose_rt2(ext[ice + 1], params["frames"][ifr])
-        pts = board_points_ref(spec, params["calobject_warp"])
-        p_cam = _transform_point_rt(rt_joint[:, None, None, :], pts[None])
-        q = project_core(p_cam, params["intrinsics"][ici][:, None, None, :],
-                         spec.lensmodel).numpy()
-        obs[..., :2] = q
-        if observed_pixel_uncertainty:
-            obs[..., :2] += np.random.randn(*q.shape) * \
-                observed_pixel_uncertainty
-
-    if spec.Nobservations_point:
-        obs = np.asarray(optimization_inputs["observations_point"])
-        idx = np.asarray(
-            optimization_inputs["indices_point_camintrinsics_camextrinsics"])
-        ipt, ici, ice = (torch.as_tensor(idx[:, i], dtype=torch.int64)
-                         for i in range(3))
-        p_cam = _transform_point_rt(ext[ice + 1], params["points"][ipt])
-        q = project_core(p_cam, params["intrinsics"][ici],
-                         spec.lensmodel).numpy()
-        obs[:, :2] = q
-        if observed_pixel_uncertainty:
-            obs[:, :2] += np.random.randn(*q.shape) * \
-                observed_pixel_uncertainty
+# stereo_opencv8_2cam: a stereo rig of two OPENCV8 cameras of 800x600,
+# 0.22 m apart, calibrated from 84 frames of a 14x14 board (0.077 m) that
+# both see whole (the JAX package's tests/test_calibration.py scene
+# recipe; Nmeasurements 65876 = 2*84*196*2 board + 2*10 regularization,
+# Nstate 536 = 2*12 + 6 + 84*6 + 2)
+STEREO_OPENCV8_2CAM = dict(Ncameras=2, spacing=0.077, warp=(0.002, -0.001),
+                           rig_spacing=0.22)
 
 
 def make_problem(Ncameras=2, Nframes=8, model="LENSMODEL_OPENCV8", W=6, H=5,
@@ -142,7 +110,8 @@ def make_problem(Ncameras=2, Nframes=8, model="LENSMODEL_OPENCV8", W=6, H=5,
     )
     oi.update(extra_oi)
     oi["observations_board"][..., 2] = 1.0
-    make_perfect_observations(oi, observed_pixel_uncertainty=0.3)
+    make_perfect_observations(oi, observed_pixel_uncertainty=0.3,
+                              device=_CPU)
     spec, arrays, b0 = convert.from_reference(oi, device=device, dtype=dtype)
     return oi, spec, arrays, b0
 
@@ -273,3 +242,60 @@ def sfm_triangulated(Ncameras=8, Npoints=500):
         do_apply_regularization_unity_cam01=True,
         do_apply_outlier_rejection=False,
     )
+
+
+def stereo_opencv8_2cam(Nframes=84, model="LENSMODEL_OPENCV8", W=14, H=14,
+                        *, device=None):
+    """The stereo_opencv8_2cam optimization_inputs: the JAX package's test
+    scene (``tests/test_calibration.py`` make_scene) of two cameras of
+    800x600, fx 750 and 770, their distortions randn * 1e-2, camera 1 at
+    the recipe's extrinsics; ``synthesize_board_observations`` draws
+    Nframes poses of a W x H board around 1.2 m that both cameras see
+    whole, the observations are the true geometry's projections with 0.3
+    px of noise, and the geometry is perturbed as ``perturbed_oi(seed=1)``,
+    outlier rejection off.  Fewer frames, a smaller board or another lens
+    model give smaller problems of the same kind.  The projections run on
+    `device` (the card unless given "cpu"); the output is numpy."""
+    cfg = STEREO_OPENCV8_2CAM
+    Nc = cfg["Ncameras"]
+    np.random.seed(0)
+    imagersize = np.array([800, 600])
+    n = lensmodel_num_params(model)
+    intr = []
+    for i in range(Nc):
+        fx = 750.0 + 20 * i
+        intr.append([fx, fx * 0.995, (imagersize[0] - 1) / 2 + 5 - 3 * i,
+                     (imagersize[1] - 1) / 2 - 4 + 2 * i]
+                    + (np.random.randn(n - 4) * 1e-2).tolist())
+    intr = np.array(intr)
+    ext = np.array([[0.01 * i, -0.02 * i, 0.005 * i,
+                     -cfg["rig_spacing"] * i, 0.02 * i, 0.01 * i]
+                    for i in range(1, Nc)])
+    models = [cameramodel(intrinsics=(model, intr[i]), imagersize=imagersize,
+                          rt_cam_ref=ext[i - 1] if i else np.zeros(6))
+              for i in range(Nc)]
+    q, Rt_ref_boardref = synthetic_data.synthesize_board_observations(
+        models, object_width_n=W, object_height_n=H,
+        object_spacing=cfg["spacing"], calobject_warp=np.array(cfg["warp"]),
+        rt_ref_boardcenter=np.array([0., 0., 0., 0., 0., 1.2]),
+        rt_ref_boardcenter__noiseradius=np.array(
+            [np.pi / 6, np.pi / 6, np.pi / 9, 0.2, 0.2, 0.4]),
+        Nframes=Nframes, which="all-cameras-must-see-full-board",
+        device=device)
+    oi = dict(
+        intrinsics=intr, extrinsics_rt_fromref=ext,
+        frames_rt_toref=_rt_from_Rt(torch.as_tensor(Rt_ref_boardref)).numpy(),
+        observations_board=np.concatenate(
+            [q, np.ones(q.shape[:-1] + (1,))], axis=-1).reshape(
+                Nframes * Nc, H, W, 3),
+        indices_frame_camintrinsics_camextrinsics=np.array(
+            [[f, c, c - 1] for f in range(Nframes) for c in range(Nc)],
+            dtype=np.int32),
+        lensmodel=model, imagersizes=np.tile(imagersize, (Nc, 1)),
+        calobject_warp=np.array(cfg["warp"]),
+        calibration_object_spacing=cfg["spacing"])
+    make_perfect_observations(oi, observed_pixel_uncertainty=0.3,
+                              device=device)
+    oi = perturbed_oi(oi, seed=1)
+    oi["do_apply_outlier_rejection"] = False
+    return oi

@@ -1,6 +1,7 @@
 """The port stands alone: importing mrcal_tpu_torch (the splined path,
-the multi-device package, the uncertainty modules, the .cahvor format and
-utils included, and building the splined bench problem) loads neither jax
+the multi-device package, the uncertainty modules, the .cahvor format,
+utils and synthetic_data included, and building the splined bench
+problem) loads neither jax
 nor mrcal_tpu, and no module of the port (nor chip_smoke.py) imports
 either.  The public entry points of the projection, utils and uncertainty
 modules run on the card unless told otherwise."""
@@ -38,7 +39,7 @@ def test_import_loads_no_jax():
             "mrcal_tpu_torch.parallel, mrcal_tpu_torch.projections, "
             "mrcal_tpu_torch.factorization, mrcal_tpu_torch.cameramodel, "
             "mrcal_tpu_torch.model_analysis, mrcal_tpu_torch.utils, "
-            "mrcal_tpu_torch.cahvor; "
+            "mrcal_tpu_torch.cahvor, mrcal_tpu_torch.synthetic_data; "
             "from mrcal_tpu_torch.lensmodels import splined_deltau; "
             "from mrcal_tpu_torch.optimize.solver import "
             "build_normal_equations_splined, lm_solve; "
@@ -135,6 +136,15 @@ def _entry_point_calls():
             ()),
         "measurements_board": (m.measurements_board, (oi,)),
         "residuals_point": (m.residuals_point, (oi,)),
+        "triangulate": (m.triangulate, (
+            np.stack([q, q + [[-30., 0.]]], axis=-2), (model, model))),
+        "synthesize_board_observations": (
+            lambda **kw: m.synthesize_board_observations(
+                [model], object_width_n=4, object_height_n=3,
+                object_spacing=0.1, calobject_warp=None,
+                rt_ref_boardcenter=np.array([0., 0., 0., 0., 0., 1.5]),
+                rt_ref_boardcenter__noiseradius=np.zeros(6), Nframes=1,
+                **kw), ()),
     }
 
 
@@ -157,7 +167,8 @@ ENTRY_POINTS = ["project", "unproject", "project_pinhole",
                 "drt_cross_reprojection__dbpacked", "sorted_eig",
                 "apply_homography", "ingest_packed_state",
                 "hypothesis_board_corner_positions", "measurements_board",
-                "residuals_point"]
+                "residuals_point", "triangulate",
+                "synthesize_board_observations"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

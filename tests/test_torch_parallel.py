@@ -80,7 +80,8 @@ def splined_oi():
     oi["intrinsics"][:, 4:] = rng.normal(size=oi["intrinsics"][:, 4:].shape
                                          ) * 2e-3
     np.random.seed(8)
-    tproblems.make_perfect_observations(oi, observed_pixel_uncertainty=0.2)
+    tproblems.make_perfect_observations(oi, observed_pixel_uncertainty=0.2,
+                                        device="cpu")
     oi["intrinsics"][:, 4:] = 0.0
     oi["frames_rt_toref"] += rng.normal(size=oi["frames_rt_toref"].shape
                                         ) * 0.01

@@ -4,8 +4,6 @@ jax.jacrev at 1e-10; project/unproject with their gradients for every
 ported family (the splined one at 9x7 knots) and the special-model pairs
 at 1e-10 relative."""
 
-import multiprocessing
-from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
@@ -20,6 +18,7 @@ import mrcal_tpu_torch.poseutils as tpu
 from mrcal_tpu_torch.lensmodels import project_core as t_project_core
 from mrcal_tpu_torch import lensmodel_num_params
 
+from test_torch_residuals import jax_reference_pool
 from test_torch_residuals import torch_threads  # noqa: F401
 
 PARAMETRIC = ["LENSMODEL_PINHOLE", "LENSMODEL_STEREOGRAPHIC",
@@ -208,8 +207,7 @@ def _jax_projection_refs(group):
 def projection_refs():
     """The JAX references' processes, started with the module's first
     test: {family or special pair: a future of its group's references}."""
-    with ProcessPoolExecutor(len(GROUPS), mp_context=multiprocessing
-                             .get_context("spawn")) as pool:
+    with jax_reference_pool(len(GROUPS), compiled=False) as pool:
         futures = [pool.submit(_jax_projection_refs, g) for g in GROUPS]
         yield {key: fut for g, fut in zip(GROUPS, futures)
                for key in (g if "special" not in g else

@@ -17,6 +17,10 @@ from mrcal_tpu_torch.optimize import residuals as tres
 from mrcal_tpu_torch import convert, problems
 
 from test_sfm_points import make_sfm_scene
+# the JAX references' helpers, which other port test modules import from
+# here too
+from jax_references import (compile_jax_transforms,  # noqa: F401
+                            jax_reference_pool, share_jax_evaluations)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -30,49 +34,6 @@ def torch_threads():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def share_jax_evaluations():
-    """In a process that computes JAX references: make the JAX package's
-    optimizer_callback and drt_cross_reprojection__dbpacked return a copy
-    of their first result for inputs with the same contents.  Its
-    uncertainty code calls each of them once per call of its own, on the
-    same solve, and each call costs seconds of eager dispatch and
-    compiles; the results are those of the first call, bit for bit."""
-    import copy
-    import functools
-    import hashlib
-    import sys
-    import mrcal_tpu.optimize.residuals
-
-    def key(args, kw):
-        h = hashlib.sha1()
-        for k, v in [(None, a) for a in args] + sorted(kw.items()):
-            h.update(repr(k).encode())
-            if isinstance(v, np.ndarray):
-                h.update(repr((v.shape, v.dtype)).encode())
-                h.update(np.ascontiguousarray(v).tobytes())
-            else:
-                h.update(repr(v).encode())
-        return h.hexdigest()
-
-    def shared(fn):
-        cache = {}
-
-        @functools.wraps(fn)
-        def call(*args, **kw):
-            k = key(args, kw)
-            if k not in cache:
-                cache[k] = fn(*args, **kw)
-            return copy.deepcopy(cache[k])
-        return call
-
-    # (the package's `optimize` attribute is the function of that name)
-    for module, name in (("mrcal_tpu.optimize", "optimizer_callback"),
-                         ("mrcal_tpu.optimize.residuals",
-                          "drt_cross_reprojection__dbpacked")):
-        module = sys.modules[module]
-        setattr(module, name, shared(getattr(module, name)))
 
 
 def point_problem_oi():

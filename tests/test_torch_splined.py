@@ -99,7 +99,8 @@ def splined_oi(model=MODEL3, Ncameras=1, Nframes=5, W=8, H=6, seed=0,
               do_apply_outlier_rejection=False)
     oi["observations_board"][..., 2] = 1.0
     np.random.seed(seed)
-    tproblems.make_perfect_observations(oi, observed_pixel_uncertainty=0.3)
+    tproblems.make_perfect_observations(oi, observed_pixel_uncertainty=0.3,
+                                        device="cpu")
     oi["observations_board"][0, 0, 0, 2] = -1.0      # outlier
     oi["observations_board"][2, 3, 4, 2] = 0.5       # down-weighted
     return oi

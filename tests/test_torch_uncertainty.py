@@ -22,8 +22,6 @@ four processes, all started before the first test, and the pixel noise
 is given to both packages (the JAX package then compiles no residual
 function of its own) on every problem but the 1-camera one."""
 
-import multiprocessing
-from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
@@ -36,7 +34,8 @@ from mrcal_tpu_torch import problems
 from mrcal_tpu_torch.optimize.jacobian import optimizer_callback
 from mrcal_tpu_torch.optimize.layout import spec_from_inputs
 
-from test_torch_residuals import point_problem_oi, share_jax_evaluations
+from jax_references import residuals_cross_cases, uncertainty_references
+from test_torch_residuals import jax_reference_pool, point_problem_oi
 from test_torch_residuals import torch_threads  # noqa: F401
 
 SPLINED = "LENSMODEL_SPLINED_STEREOGRAPHIC_order=3_Nx=9_Ny=7_fov_x_deg=120"
@@ -118,83 +117,17 @@ SIGMA = {name: None if name == "1cam" else 0.3 for name in PROBLEMS}
 CHILDREN = (("1cam",), ("2cam",), ("points", "moving"), ("splined",))
 
 
-def _jax_refs(names):
-    """The JAX package on the problems `names`, in a fresh process:
-    covariances for every method and distance, drt for the queried camera
-    and the rrp flavor; on 1cam, the what= variants of mean-pcam through
-    the API too."""
-    import mrcal_tpu
-    from mrcal_tpu.model_analysis import worst_direction_stdev
-    share_jax_evaluations()
-    refs = {}
-    for name in names:
-        oi, icam, methods = problem(name)
-        m = mrcal_tpu.cameramodel(optimization_inputs=oi,
-                                  icam_intrinsics=icam)
-        out = refs[name] = dict(cov={}, what={}, drt={})
-        for method in methods:
-            for atinfinity in (False, True):
-                cov = np.asarray(mrcal_tpu.projection_uncertainty(
-                    P_CAM, m, method=method, atinfinity=atinfinity,
-                    observed_pixel_uncertainty=SIGMA[name]))
-                out["cov"][method, atinfinity] = cov
-                l = np.linalg.eigvalsh(cov)
-                out["what"][method, atinfinity] = {
-                    "worstdirection-stdev": np.asarray(
-                        worst_direction_stdev(cov)),
-                    "rms-stdev": np.sqrt(np.mean(l, axis=-1))}
-        if name == "1cam":
-            for what in ("worstdirection-stdev", "rms-stdev"):
-                out["what"]["mean-pcam", False][what] = np.asarray(
-                    mrcal_tpu.projection_uncertainty(P_CAM, m, what=what))
-        for ic in (icam, -1):
-            if ic < 0 and name == "moving":
-                continue
-            out["drt"][ic] = mrcal_tpu.drt_cross_reprojection__dbpacked(
-                icam_intrinsics=ic, **oi)
-        if name == "2cam":
-            out["residuals_cross"] = _residuals_cross_cases(
-                "jax", oi, np.asarray)
-    return refs
-
-
 RT_CC = np.array([1e-3, -2e-3, 5e-4, 0.01, -0.02, 0.005])
-
-
-def _residuals_cross_cases(pkg, oi, to_numpy):
-    """residuals_cross at RT_CC in its three flavors: rrp, ccp with the
-    query camera's extrinsics given, ccp per observation."""
-    if pkg == "jax":
-        from mrcal_tpu.optimize import residuals as res
-        from mrcal_tpu.optimize.layout import normalize_inputs as norm
-        from mrcal_tpu.optimize.layout import spec_from_inputs as spec_of
-        kw = norm(oi)
-        arrays = res.arrays_from_inputs(**kw)
-        spec = spec_of(**kw)
-        as_array = np.asarray
-    else:
-        from mrcal_tpu_torch.optimize import residuals as res
-        kw = oi
-        arrays = res.arrays_from_inputs(oi, device="cpu")
-        spec = spec_from_inputs(**oi)
-        as_array = torch.as_tensor
-    b = res.pack_params(res.params_from_arrays(arrays), spec)
-    rt = as_array(RT_CC)
-    ext = as_array(np.asarray(kw["extrinsics_rt_fromref"])[0])
-    return {flavor: to_numpy(res.residuals_cross(rt, b, arrays, spec, **f))
-            for flavor, f in (("rrp", {}),
-                              ("ccp stationary", dict(rt_cam_star_ref=ext)),
-                              ("ccp per observation",
-                               dict(ccp_per_observation=True)))}
 
 
 @pytest.fixture(scope="module")
 def jax_refs():
     """Every problem's JAX references, from len(CHILDREN) processes started
     at once."""
-    with ProcessPoolExecutor(len(CHILDREN), mp_context=multiprocessing
-                             .get_context("spawn")) as pool:
-        futures = [pool.submit(_jax_refs, names) for names in CHILDREN]
+    with jax_reference_pool(len(CHILDREN)) as pool:
+        futures = [pool.submit(uncertainty_references, {
+            name: problem(name) + (SIGMA[name],) for name in names}, P_CAM,
+            RT_CC) for names in CHILDREN]
         yield {name: f for names, f in zip(CHILDREN, futures)
                for name in names}
 
@@ -262,8 +195,8 @@ def test_drt_cross_reprojection_matches_jax(jax_refs, name):
 
 def test_residuals_cross_matches_jax(jax_refs):
     """Every flavor of residuals_cross, at 1e-12 of the largest entry."""
-    got = _residuals_cross_cases("port", problem("2cam")[0],
-                                 lambda t: t.numpy())
+    got = residuals_cross_cases("port", problem("2cam")[0], RT_CC,
+                                lambda t: t.numpy())
     for flavor, want in _ref(jax_refs, "2cam")["residuals_cross"].items():
         _close(got[flavor], want, 1e-12)
 
