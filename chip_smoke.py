@@ -104,6 +104,28 @@ nonzero:
    (480000 pairs; the default method and Lindstrom's), each against the
    CPU in the same process: p to 1e-9 m, the covariances to 1e-7 of
    their largest entry, the dense points to 1e-10 of their range.
+   calibrate_from_images: the calibration front end on
+   stereo_opencv8_2cam's true geometry (no noise, no perturbation): 168
+   8-bit images of 800 x 600 rendered on the card (each pixel's 4 x 4
+   supersamples unprojected once per camera by the true OPENCV8
+   intrinsics, each frame's rays met with the warped board, a
+   checkerboard of 15 x 15 squares whose inner vertices are the 14 x 14
+   corners); find_chessboard_corners on the card, against the CPU on
+   frames 0-11 (the same images found, the same levels, corners to 1e-9
+   px); at least 3/4 of the images yield the full grid and the corners'
+   rms against the true projections is at most 0.15 px; an in-memory
+   corners.vnl read by compute_chessboard_corners; seed_stereographic
+   (focal 700) on the card against the CPU (1e-9), its batched PnP
+   launching cholesky_factor_solve at (Nobs, 6, 1) 20 times per pass;
+   the staged solves of tests/test_seeding.py (geometry only, then
+   OPENCV8 in full from zero distortions; no outlier rejection), one
+   fused launch and one back-substitution per iteration at the frames
+   kept; the stage-2 rms no larger than the same objective at the true
+   geometry (+1e-9), fx, fy, cx, cy within 1 px and camera 1's
+   translation within 2 mm of the truth; cameramodels and camera 0's
+   valid-intrinsics region (contourpy, else the bounding box: the log
+   says which); each stage's wall; and, no gate, find_chessboard_corners
+   on one 6000 x 4000 render of a board.
 6. mesh: the multi-device path (mrcal_tpu_torch.parallel), the
    observations sharded over a torch.distributed group.
    nccl1: a one-rank NCCL group (a file store in a temporary directory,
@@ -531,26 +553,7 @@ CHECK_SHAPES = (MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES + SPLINED_SHAPES
 def check_fused(torch, rng):
     from mrcal_tpu_torch.ops import batched_cholesky as bc
     dev = torch.device("cuda")
-    tol = {torch.float64: 1e-12, torch.float32: 1e-5}
-    for dt in (torch.float64, torch.float32):
-        for B, n, K in CHECK_SHAPES:
-            A_np, rhs_np = spd_batch(rng, B, n, K)
-            A = torch.as_tensor(A_np, dtype=dt, device=dev)
-            rhs = torch.as_tensor(rhs_np, dtype=dt, device=dev)
-            L_p, x_p = bc.cholesky_factor_solve_plain(A, rhs)
-            L_k, x_k = bc.cholesky_factor_solve(A, rhs)
-            x_s = bc.cholesky_solve_factored(L_p, rhs)
-            torch.cuda.synchronize()
-            if L_k.shape != (B, n, n) or x_k.shape != (B, n, K):
-                fail(f"fused kernel: wrong output shape at {(B, n, K)}")
-            errs = ([rel_err(L_k, L_p), rel_err(x_k, x_p), rel_err(x_s, x_p)]
-                    if B else [0.0, 0.0, 0.0])
-            log(f"[kernels] {str(dt)[6:]} B={B} n={n} K={K}: fused L rel "
-                f"err {errs[0]:.3e}, x {errs[1]:.3e}; solve x "
-                f"{errs[2]:.3e} (tol {tol[dt]:g})")
-            if not all(e <= tol[dt] for e in errs):
-                fail(f"fused or solve kernel disagrees with the plain "
-                     f"version at {dt} B={B} n={n} K={K}")
+    check_fused_at(torch, rng, CHECK_SHAPES)
 
     # a non-SPD block, among few and many: non-finite there, finite
     # elsewhere
@@ -573,6 +576,33 @@ def check_fused(torch, rng):
         "and factor+solve kernels, B = 84 and 70000, f64 and f32)")
 
 
+def check_fused_at(torch, rng, shapes):
+    """The fused kernel and the solve against their plain versions at each
+    (B, n, K) of shapes, f64 and f32."""
+    from mrcal_tpu_torch.ops import batched_cholesky as bc
+    dev = torch.device("cuda")
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}
+    for dt in (torch.float64, torch.float32):
+        for B, n, K in shapes:
+            A_np, rhs_np = spd_batch(rng, B, n, K)
+            A = torch.as_tensor(A_np, dtype=dt, device=dev)
+            rhs = torch.as_tensor(rhs_np, dtype=dt, device=dev)
+            L_p, x_p = bc.cholesky_factor_solve_plain(A, rhs)
+            L_k, x_k = bc.cholesky_factor_solve(A, rhs)
+            x_s = bc.cholesky_solve_factored(L_p, rhs)
+            torch.cuda.synchronize()
+            if L_k.shape != (B, n, n) or x_k.shape != (B, n, K):
+                fail(f"fused kernel: wrong output shape at {(B, n, K)}")
+            errs = ([rel_err(L_k, L_p), rel_err(x_k, x_p), rel_err(x_s, x_p)]
+                    if B else [0.0, 0.0, 0.0])
+            log(f"[kernels] {str(dt)[6:]} B={B} n={n} K={K}: fused L rel "
+                f"err {errs[0]:.3e}, x {errs[1]:.3e}; solve x "
+                f"{errs[2]:.3e} (tol {tol[dt]:g})")
+            if not all(e <= tol[dt] for e in errs):
+                fail(f"fused or solve kernel disagrees with the plain "
+                     f"version at {dt} B={B} n={n} K={K}")
+
+
 def _bound(B, n, K, elt, wrapper):
     """Least time (ms) for a wrapper's work on the card, and its limit."""
     ops_f = B * (sum(i * (i + 1) for i in range(n)) + n * (n + 1) // 2)
@@ -588,10 +618,10 @@ def _bound(B, n, K, elt, wrapper):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes
 
 
-def time_kernels(torch, card):
-    """Each wrapper at its shapes, f64: CUDA-event ms per call, device us
-    per launch, plain and library ms, bound and share; and the launch
-    floor."""
+def time_kernels(torch, card, extra_shapes=None):
+    """Each wrapper at its shapes (and at extra_shapes: wrapper -> (B, n,
+    K) list), f64: CUDA-event ms per call, device us per launch, plain and
+    library ms, bound and share; and the launch floor."""
     from mrcal_tpu_torch.ops import batched_cholesky as bc
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -615,6 +645,8 @@ def time_kernels(torch, card):
                                  + RIG16_BATCH_SHAPES
                                  + SPLINED_FLEET_SHAPES[1:] + LARGE_SHAPES),
         cholesky_factor=[(84, 6, 0), (1 << 20, 3, 0), (1 << 18, 6, 0)])
+    for name, more in (extra_shapes or {}).items():
+        shapes[name] += [sh for sh in more if sh not in shapes[name]]
     results = {name: [] for name in shapes}
     for name, todo in shapes.items():
         for B, n, K in todo:
@@ -2173,6 +2205,443 @@ def phase_stereo(torch):
     return oi, f64
 
 
+# [calibrate_from_images]: stereo_opencv8_2cam's boards rendered into
+# 8-bit images (CAL_SS x CAL_SS supersamples per pixel), detected, seeded
+# (focal CAL_FOCAL) and solved in two stages
+CAL_DEVICE = "cuda"
+CAL_NFRAMES = 84
+CAL_SS = 4
+CAL_UNPROJECT_CHUNK = 1 << 21          # rays per unprojection call
+CAL_RENDER_BATCH = 8                   # frames rendered at once
+CAL_FOCAL = 700.0
+CAL_CPU_FRAMES = 12                    # frames whose detection the CPU redoes
+CAL_CORNER_PX_TOL = 1e-9               # card vs CPU
+CAL_SEED_TOL = 1e-9                    # card vs CPU
+CAL_CORNER_RMS_MAX = 0.15              # detections vs the truth (px)
+CAL_FULL_SHARE_MIN = 0.75              # images that yield the full grid
+CAL_RMS_SLACK = 1e-9
+CAL_CORE_PX_TOL = 1.0
+CAL_T1_TOL_M = 2e-3
+CAL_PNP_STEPS = 20
+CAL_LARGE = (6000, 4000)               # a 24-MP frame, timed only
+CAL_STAGE1 = dict(do_optimize_intrinsics_core=False,
+                  do_optimize_intrinsics_distortions=False,
+                  do_optimize_calobject_warp=False)
+
+
+def _cal_name(f, c):
+    return f"frame{f:03d}-cam{c}.png"
+
+
+def cal_rays(torch, truth, icam, dev):
+    """The ray (unprojection, not normalized) of every supersample of
+    camera icam's pixels, (Hpx * CAL_SS * Wpx * CAL_SS, 3), row-major;
+    supersample (i, j) of pixel (x, y) at x + (j + 0.5) / CAL_SS - 0.5."""
+    from mrcal_tpu_torch import unproject
+    Wpx, Hpx = (int(v) for v in truth["imagersize"])
+    f64 = torch.float64
+    xs = (torch.arange(Wpx * CAL_SS, dtype=f64, device=dev) + 0.5) \
+        / CAL_SS - 0.5
+    ys = (torch.arange(Hpx * CAL_SS, dtype=f64, device=dev) + 0.5) \
+        / CAL_SS - 0.5
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    q = torch.stack([xx, yy], dim=-1).reshape(-1, 2)
+    intr = truth["intrinsics"][icam]
+    return torch.cat([unproject(q[i:i + CAL_UNPROJECT_CHUNK],
+                                truth["lensmodel"], intr, device=dev)
+                      for i in range(0, len(q), CAL_UNPROJECT_CHUNK)])
+
+
+def cal_render(torch, truth, W, H, dev):
+    """8-bit images (Nframes, 2, Hpx, Wpx) of the true boards: each
+    supersample's ray meets the warped board (a few fixed-point steps on
+    the warp's height), the board is a checkerboard of (W + 1) x (H + 1)
+    squares whose inner vertices are the W x H corners (one border row of
+    squares), dark 40, light 220, the background 130; the supersamples
+    averaged and rounded."""
+    from mrcal_tpu_torch.poseutils import _compose_Rt2, _Rt_from_rt
+    Wpx, Hpx = (int(v) for v in truth["imagersize"])
+    sp = float(truth["spacing"])
+    kx, ky = (float(v) for v in truth["warp"])
+    Rt_rb = torch.as_tensor(truth["Rt_ref_boardref"], device=dev)
+    N = len(Rt_rb)
+    out = torch.empty((N, 2, Hpx, Wpx), dtype=torch.uint8, device=dev)
+    for c in range(2):
+        v = cal_rays(torch, truth, c, dev)
+        rt_cr = (np.zeros(6) if c == 0
+                 else truth["extrinsics_rt_fromref"][c - 1])
+        Rt_cr = _Rt_from_rt(torch.as_tensor(rt_cr, device=dev))
+        for f0 in range(0, N, CAL_RENDER_BATCH):
+            Rt = _compose_Rt2(Rt_cr, Rt_rb[f0:f0 + CAL_RENDER_BATCH])
+            R, t = Rt[:, :3, :], Rt[:, 3, :]
+            # board coordinate k of s v: s (e_k . v) - e_k . t, e_k the
+            # board's axis k in the camera (R's column k)
+            a = torch.einsum("nj,bjk->kbn", v, R)
+            ct = torch.einsum("bj,bjk->kb", t, R)[..., None]
+            h = torch.zeros_like(a[0])
+            for _ in range(4):
+                s = (h + ct[2]) / a[2]
+                xb = s * a[0] - ct[0]
+                yb = s * a[1] - ct[1]
+                xr = xb / ((W - 1) * sp)
+                yr = yb / ((H - 1) * sp)
+                h = kx * 4 * xr * (1 - xr) + ky * 4 * yr * (1 - yr)
+            inside = (s > 0) & (xb >= -sp) & (xb < W * sp) & (yb >= -sp) \
+                & (yb < H * sp)
+            dark = torch.remainder(torch.floor(xb / sp) + torch.floor(yb / sp),
+                                   2) == 1
+            im = torch.where(inside, torch.where(dark, 40.0, 220.0), 130.0)
+            im = im.reshape(-1, Hpx, CAL_SS, Wpx, CAL_SS).mean((2, 4))
+            out[f0:f0 + CAL_RENDER_BATCH, c] = torch.round(im).to(torch.uint8)
+        del v
+    return out
+
+
+def cal_render_large(torch, dev):
+    """A CAL_LARGE 8-bit render of a frontal 14 x 14 board of 0.077 m
+    squares through a pinhole of focal Wpx / 2, 4 x 4 supersampled, in
+    row blocks; and its true corners."""
+    Wpx, Hpx = CAL_LARGE
+    W = H = 14
+    sp = 0.077
+    f, z = Wpx / 2, 1.3
+    K = np.array([[f, 0, Wpx / 2 - 0.3], [0, f, Hpx / 2 + 0.2], [0, 0, 1]])
+    r = np.array([0.1, -0.15, 0.05])
+    th = np.linalg.norm(r)
+    k = r / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    R = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+    t = np.array([0, 0, z]) - R @ np.array([(W - 1) * sp / 2,
+                                            (H - 1) * sp / 2, 0])
+    Hm = K @ np.stack([R[:, 0] * sp, R[:, 1] * sp, t], axis=1)
+    Hinv = torch.as_tensor(np.linalg.inv(Hm), device=dev)
+    out = torch.empty((Hpx, Wpx), dtype=torch.uint8, device=dev)
+    xs = (torch.arange(Wpx * 4, dtype=torch.float64, device=dev) + 0.5) / 4 \
+        - 0.5
+    rows = 200
+    for y0 in range(0, Hpx, rows):
+        ys = (torch.arange(y0 * 4, (y0 + rows) * 4, dtype=torch.float64,
+                           device=dev) + 0.5) / 4 - 0.5
+        ys = ys[:, None]
+        w = Hinv[2, 0] * xs + Hinv[2, 1] * ys + Hinv[2, 2]
+        bx = (Hinv[0, 0] * xs + Hinv[0, 1] * ys + Hinv[0, 2]) / w
+        by = (Hinv[1, 0] * xs + Hinv[1, 1] * ys + Hinv[1, 2]) / w
+        inside = (bx >= -1) & (bx < W) & (by >= -1) & (by < H)
+        dark = torch.remainder(torch.floor(bx) + torch.floor(by), 2) == 1
+        im = torch.where(inside, torch.where(dark, 40.0, 220.0), 130.0)
+        out[y0:y0 + rows] = torch.round(
+            im.reshape(rows, 4, Wpx, 4).mean((1, 3))).to(torch.uint8)
+    ij = np.stack(np.meshgrid(np.arange(W), np.arange(H)), -1).reshape(-1, 2)
+    p = (Hm @ np.concatenate([ij, np.ones((len(ij), 1))], 1).T).T
+    return out, p[:, :2] / p[:, 2:]
+
+
+def _detect_all(torch, images, W, H, dev, times=None):
+    """find_chessboard_corners of every image (Nframes, 2, Hpx, Wpx):
+    name -> (corners, level); through the entry point, or with `times` (a
+    detector._StageTimes) through its stages."""
+    from mrcal_tpu_torch import find_chessboard_corners
+    from mrcal_tpu_torch.detector import _find_chessboard_corners
+    out = {}
+    for f in range(images.shape[0]):
+        for c in range(2):
+            im = images[f, c]
+            if times is None:
+                out[_cal_name(f, c)] = find_chessboard_corners(
+                    im, W, H, device=dev)
+            else:
+                out[_cal_name(f, c)] = _find_chessboard_corners(
+                    im.to(torch.float32), W, H, 2, 0.2, times)
+    return out
+
+
+def _launch_log(torch, fn):
+    """fn()'s result, its wall, the kernels' launch counts in it, and the
+    (B, n, K) shapes of the Schur step's two wrappers' calls."""
+    from mrcal_tpu_torch.ops import batched_cholesky as bc
+    bc.reset_launches()
+    with KernelShapes() as ks:
+        out, wall = _sync_time(torch, fn)
+    shapes = {k: sorted(set(v)) for k, v in ks.shapes.items()}
+    return out, wall, dict(bc.launches), shapes
+
+
+def phase_calibrate(torch):
+    """[calibrate_from_images]: the calibration front end on
+    stereo_opencv8_2cam at full size.  168 8-bit images of 800 x 600
+    rendered on the card from the true geometry; find_chessboard_corners
+    on the card (and on the CPU for CAL_CPU_FRAMES frames: the same
+    detections, levels and corners); an in-memory corners.vnl and
+    compute_chessboard_corners; seed_stereographic on the card (against
+    the CPU's) with the PnP's batched cholesky_factor_solve at (Nobs, 6,
+    1), 20 launches per pass; the staged solves of
+    tests/test_seeding.py (geometry only, then OPENCV8 in full from zero
+    distortions; no outlier rejection), one fused launch and one
+    back-substitution per iteration; cameramodels and camera 0's
+    valid-intrinsics region.  Gated: detection rate, the corners' rms
+    against the truth, the stage-2 rms against the same objective at the
+    true geometry, the intrinsics' core and camera 1's translation."""
+    import io
+    from mrcal_tpu_torch import (cameramodel, compute_chessboard_corners,
+                                 estimate_monocular_calobject_poses_Rt_tocam,
+                                 optimize, optimizer_callback, problems,
+                                 seed_stereographic)
+    from mrcal_tpu_torch import calibration as cal
+    from mrcal_tpu_torch.detector import _StageTimes
+    from mrcal_tpu_torch.ops import batched_cholesky as bc
+    from mrcal_tpu_torch.optimize import spec_from_inputs
+    from mrcal_tpu_torch.poseutils import _rt_from_Rt
+    phase = "calibrate_from_images"
+    dev = torch.device(CAL_DEVICE)
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    walls = {}
+    W = H = 14
+    truth = problems.stereo_opencv8_2cam_truth(CAL_NFRAMES, device=dev)
+    Nf = len(truth["Rt_ref_boardref"])
+    Wpx, Hpx = (int(v) for v in truth["imagersize"])
+    spacing = truth["spacing"]
+
+    images, walls["render"] = _sync_time(
+        torch, lambda: cal_render(torch, truth, W, H, dev))
+    log(f"[{phase}] rendered {Nf} x 2 images of {Wpx} x {Hpx} (uint8, "
+        f"{CAL_SS} x {CAL_SS} supersamples) on the card in "
+        f"{walls['render']:.3f} s; mean {float(images.float().mean()):.2f}")
+
+    # detection: the entry point, timed; then its stages, timed apart
+    _detect_all(torch, images[:1], W, H, dev)
+    det, walls["detect"] = _sync_time(
+        torch, lambda: _detect_all(torch, images, W, H, dev))
+    times = _StageTimes()
+    _detect_all(torch, images, W, H, dev, times)
+    walls["detect_stages"] = dict(times.s)
+    found = {k: v for k, v in det.items() if v[0] is not None}
+    levels = {}
+    for _, lv in found.values():
+        levels[lv] = levels.get(lv, 0) + 1
+    err = np.concatenate([
+        (c - truth["q"][int(k[5:8]), int(k[-5])].reshape(-1, 2)).ravel()
+        for k, (c, _) in found.items()])
+    corner_rms = float(np.sqrt(np.mean(err ** 2) * 2))
+    full_share = len(found) / len(det)
+    per_camera = [sum(k.endswith(f"cam{c}.png") for k in found)
+                  for c in (0, 1)]
+    log(f"[{phase}] detect on the card: {len(found)} of {len(det)} images "
+        f"yield the full {W} x {H} grid ({full_share * 100:.1f} %; per "
+        f"camera {per_camera}), "
+        f"levels {levels}; corners vs the true projections: rms "
+        f"{corner_rms:.4f} px, max {np.abs(err).max():.4f} px; "
+        f"{walls['detect']:.3f} s ({walls['detect'] / len(det) * 1e3:.2f} "
+        "ms per image; stages " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in walls["detect_stages"].items())
+        + ")")
+    missed = sorted(set(det) - set(found))
+    log(f"[{phase}] images without the full grid: {missed}")
+    if full_share < CAL_FULL_SHARE_MIN or corner_rms > CAL_CORNER_RMS_MAX:
+        fail(f"[{phase}] detection: {full_share:.3f} of the images yield "
+             f"the grid (at least {CAL_FULL_SHARE_MIN}), corner rms "
+             f"{corner_rms} px (at most {CAL_CORNER_RMS_MAX})")
+
+    # the CPU's detections of CAL_CPU_FRAMES frames
+    sub = images[:CAL_CPU_FRAMES].cpu()
+    det_cpu, walls["detect_cpu"] = _sync_time(
+        torch, lambda: _detect_all(torch, sub, W, H, cpu))
+    worst = 0.0
+    for k, (c, lv) in det_cpu.items():
+        c_g, lv_g = det[k]
+        if (c is None) != (c_g is None) or lv != lv_g:
+            fail(f"[{phase}] {k}: the card's detection (level {lv_g}) is "
+                 f"not the CPU's (level {lv})")
+        if c is not None:
+            worst = max(worst, float(np.abs(c - c_g).max()))
+    log(f"[{phase}] detect on the CPU ({len(det_cpu)} images of frames "
+        f"0-{CAL_CPU_FRAMES - 1}, {walls['detect_cpu']:.3f} s): the same "
+        f"images found at the same levels, corners {worst:.3e} px from "
+        f"the card's (tol {CAL_CORNER_PX_TOL:g})")
+    if not worst <= CAL_CORNER_PX_TOL:
+        fail(f"[{phase}] the card's corners differ from the CPU's by "
+             f"{worst} px")
+
+    # corners.vnl in memory, then the observations
+    t0 = time.perf_counter()
+    text = cal.corners_vnl(
+        (k, None if v[0] is None else np.concatenate(
+            [v[0], np.full((len(v[0]), 1), float(v[1]))], axis=1))
+        for k, v in det.items())
+    obs, idx_fc, paths = compute_chessboard_corners(
+        W, H, globs_per_camera=("*-cam0.png", "*-cam1.png"),
+        corners_cache_vnl=io.StringIO(text))
+    walls["vnl"] = time.perf_counter() - t0
+    frame_of = np.array([int(p[5:8]) for p in paths])
+    B = len(np.unique(idx_fc[:, 0]))
+    Nobs = len(obs)
+    log(f"[{phase}] corners.vnl: {len(text)} bytes, {Nobs} observations of "
+        f"{B} frames, {walls['vnl']:.3f} s")
+
+    # the PnP alone, then the seed: card and CPU
+    imagersizes = np.tile(truth["imagersize"], (2, 1))
+    stereo_models = [("LENSMODEL_STEREOGRAPHIC",
+                      np.array([CAL_FOCAL, CAL_FOCAL, (Wpx - 1) / 2,
+                                (Hpx - 1) / 2]))] * 2
+    pnp = lambda: estimate_monocular_calobject_poses_Rt_tocam(  # noqa: E731
+        idx_fc, obs, spacing, stereo_models, device=dev)
+    pnp()
+    calls = []
+    real = cal.cholesky_factor_solve
+
+    def recording(A, rhs):
+        calls.append(tuple(rhs.shape))
+        return real(A, rhs)
+    cal.cholesky_factor_solve = recording
+    try:
+        bc.reset_launches()
+        _, walls["pnp"] = _sync_time(torch, pnp)
+        pnp_launches = bc.launches["cholesky_factor_solve"]
+        seed, walls["seed"] = _sync_time(torch, lambda: seed_stereographic(
+            imagersizes, CAL_FOCAL, idx_fc, obs, spacing, device=dev))
+    finally:
+        cal.cholesky_factor_solve = real
+    npass = len(calls) // 2 // CAL_PNP_STEPS
+    retry = calls[CAL_PNP_STEPS][0] // 2 if npass == 2 else 0
+    log(f"[{phase}] PnP on the card: {walls['pnp']:.3f} s, "
+        f"{pnp_launches} launches of cholesky_factor_solve at "
+        f"{sorted(set(calls))} ({npass} batched passes; {retry} "
+        f"observations retried at two focal scales)")
+    if not (npass in (1, 2)
+            and pnp_launches == npass * CAL_PNP_STEPS * (dev.type == "cuda")
+            and calls[:CAL_PNP_STEPS] == [(Nobs, 6, 1)] * CAL_PNP_STEPS
+            and len(calls) == 2 * npass * CAL_PNP_STEPS):
+        fail(f"[{phase}] the PnP launched {pnp_launches} times at {calls}")
+    seed_cpu, walls["seed_cpu"] = _sync_time(
+        torch, lambda: seed_stereographic(imagersizes, CAL_FOCAL, idx_fc,
+                                          obs, spacing, device="cpu"))
+    seed_err = max(float(np.abs(a - b).max()) for a, b in zip(seed, seed_cpu))
+    log(f"[{phase}] seed on the card {walls['seed']:.3f} s, on the CPU "
+        f"{walls['seed_cpu']:.3f} s; card vs CPU {seed_err:.3e} (tol "
+        f"{CAL_SEED_TOL:g}); camera 1 seeded at t "
+        f"{np.round(seed[1][0, 3:], 4).tolist()} m")
+    if not seed_err <= CAL_SEED_TOL:
+        fail(f"[{phase}] the card's seed differs from the CPU's by "
+             f"{seed_err}")
+
+    # the staged solves
+    n = len(truth["intrinsics"][0])
+    oi = dict(
+        intrinsics=np.concatenate([seed[0], np.zeros((2, n - 4))], axis=1),
+        extrinsics_rt_fromref=seed[1].copy(),
+        frames_rt_toref=seed[2].copy(), observations_board=obs,
+        indices_frame_camintrinsics_camextrinsics=np.concatenate(
+            [idx_fc, idx_fc[:, 1:] - 1], axis=1).astype(np.int32),
+        lensmodel=truth["lensmodel"], imagersizes=imagersizes,
+        calobject_warp=np.zeros(2), calibration_object_spacing=spacing,
+        do_apply_outlier_rejection=False)
+    stages = {}
+    for stage, extra in (("stage1", CAL_STAGE1), ("stage2", {})):
+        oi_s = dict(oi, **extra)
+        spec = spec_from_inputs(**oi_s)
+        K = spec.Nstate - spec.num_states_frames + 1
+        stats, wall, launches, shapes = _launch_log(
+            torch, lambda: optimize(precision="f64", device=dev, **SOLVE_KW,
+                                    **oi_s))
+        niter = stats["niterations"]
+        stages[stage] = dict(
+            rms=stats["rms_reproj_error__pixels"], niterations=niter,
+            wall_s=wall, ms_per_iteration=wall / niter * 1e3,
+            launches=launches, shapes={k: [list(x) for x in v]
+                                       for k, v in shapes.items()},
+            K_counted=K)
+        walls[stage] = wall
+        log(f"[{phase}] {stage}: rms {stats['rms_reproj_error__pixels']!r} "
+            f"px in {niter} iterations, {wall:.3f} s "
+            f"({wall / niter * 1e3:.2f} ms/iteration); the kernels ran at "
+            f"{shapes} (K = {K} counted from the state: the camera-side "
+            f"states and the gradient), launches {launches}")
+        check_launches_per_iteration(f"{phase} {stage}", launches, niter)
+        fused = shapes["cholesky_factor_solve"]
+        if not (len(fused) == 1 and fused[0][:2] == (B, 6)
+                and shapes["cholesky_solve_factored"] == [(B, 6, 1)]):
+            fail(f"[{phase}] {stage}: the kernels ran at {shapes}, not "
+                 f"({B}, 6, K) and ({B}, 6, 1)")
+        stages[stage]["K_logged"] = fused[0][2]
+        oi.update({k: oi_s[k] for k in ("intrinsics", "extrinsics_rt_fromref",
+                                        "frames_rt_toref", "calobject_warp")})
+
+    # the same objective at the true geometry
+    oi_true = dict(
+        oi, intrinsics=truth["intrinsics"].copy(),
+        extrinsics_rt_fromref=truth["extrinsics_rt_fromref"].copy(),
+        frames_rt_toref=_rt_from_Rt(torch.as_tensor(
+            truth["Rt_ref_boardref"][np.unique(frame_of)])).numpy(),
+        calobject_warp=truth["warp"].copy())
+    x_true = optimizer_callback(no_jacobian=True, device=dev, **oi_true)[1]
+    rms_true = float(np.sqrt(np.mean(x_true ** 2)))
+    rms2 = stages["stage2"]["rms"]
+    core_err = float(np.abs(oi["intrinsics"][:, :4]
+                            - truth["intrinsics"][:, :4]).max())
+    t1_err = float(np.linalg.norm(oi["extrinsics_rt_fromref"][0, 3:]
+                                  - truth["extrinsics_rt_fromref"][0, 3:]))
+    log(f"[{phase}] stage 2 rms {rms2!r} px against {rms_true!r} px at the "
+        f"true geometry (the same observations, weights and "
+        f"regularization); fx fy cx cy within {core_err:.4f} px of the "
+        f"truth (tol {CAL_CORE_PX_TOL:g}), camera 1's t within "
+        f"{t1_err * 1e3:.4f} mm (tol {CAL_T1_TOL_M * 1e3:g}); warp "
+        f"{oi['calobject_warp'].tolist()} (true {truth['warp'].tolist()})")
+    if not (rms2 <= rms_true + CAL_RMS_SLACK and core_err <= CAL_CORE_PX_TOL
+            and t1_err <= CAL_T1_TOL_M):
+        fail(f"[{phase}] the solve: rms {rms2} (truth {rms_true}), core "
+             f"{core_err} px, camera 1's t {t1_err} m")
+
+    # cameramodels and camera 0's valid-intrinsics region
+    models = [cameramodel(optimization_inputs=oi, icam_intrinsics=i)
+              for i in (0, 1)]
+    try:
+        import contourpy  # noqa: F401
+        branch = "contourpy"
+    except ImportError:
+        branch = "the bounding box (no contourpy)"
+    cal._compute_valid_intrinsics_region(models[0], device=dev)
+    region, walls["region"] = _sync_time(
+        torch, lambda: cal._compute_valid_intrinsics_region(models[0],
+                                                            device=dev))
+    if not (len(region) >= 4 and np.isfinite(region).all()
+            and np.array_equal(region[0], region[-1])):
+        fail(f"[{phase}] the valid-intrinsics region is not a closed "
+             f"contour: {region}")
+    log(f"[{phase}] valid-intrinsics region of camera 0 by {branch}: "
+        f"{len(region)} points, x {region[:, 0].min():.1f}-"
+        f"{region[:, 0].max():.1f}, y {region[:, 1].min():.1f}-"
+        f"{region[:, 1].max():.1f} px, {walls['region']:.3f} s warm")
+
+    # a 24-MP frame: the detector's wall, no gate
+    big, walls["render_large"] = _sync_time(
+        torch, lambda: cal_render_large(torch, dev))
+    times = _StageTimes()
+    from mrcal_tpu_torch.detector import _find_chessboard_corners
+    (c_big, lv_big), walls["detect_large"] = _sync_time(
+        torch, lambda: _find_chessboard_corners(
+            big[0].to(torch.float32), W, H, 2, 0.2, times))
+    big_err = (float(np.sqrt(np.mean((c_big - big[1]) ** 2) * 2))
+               if c_big is not None else None)
+    walls["detect_large_stages"] = dict(times.s)
+    log(f"[{phase}] {CAL_LARGE[0]} x {CAL_LARGE[1]} frame: rendered in "
+        f"{walls['render_large']:.3f} s; find_chessboard_corners "
+        f"{walls['detect_large']:.3f} s (stages " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in times.s.items())
+        + f"), level {lv_big}, corner rms vs the truth {big_err} px")
+
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"[{phase}] walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()
+        if not isinstance(v, dict)))
+    return dict(images=len(det), found=len(found), levels=levels,
+                corner_rms_px=corner_rms, cpu_corner_err_px=worst,
+                Nobs=Nobs, frames=B, pnp_launches=pnp_launches,
+                pnp_passes=npass, pnp_retried=retry, seed_err=seed_err,
+                rms_truth=rms_true, core_err_px=core_err,
+                t1_err_m=t1_err, region_points=len(region),
+                region_branch=branch, walls=walls, **stages)
+
+
 def phase_profile(torch, phase, oi, ms_per_iteration):
     """Where the time of the f64 solve goes: its first PROFILE_ITERATIONS
     iterations once more, under torch.profiler; device time by kernel,
@@ -2298,7 +2767,22 @@ def main():
     stamp("uncertainty")
     others["stereo_opencv8_2cam"] = phase_stereo(torch)
     stamp("stereo_opencv8_2cam")
-    entries, main_path["launch_floor"] = time_kernels(torch, card)
+    calib = phase_calibrate(torch)
+    stamp("calibrate_from_images")
+    # the kernels at the front end's shapes, against their plain versions
+    calib_shapes = sorted({tuple(sh) for st in ("stage1", "stage2")
+                           for v in calib[st]["shapes"].values()
+                           for sh in v}
+                          | {(calib["Nobs"], 6, 1)}
+                          | ({(2 * calib["pnp_retried"], 6, 1)}
+                             if calib["pnp_retried"] else set()))
+    check_fused_at(torch, np.random.default_rng(2), calib_shapes)
+    entries, main_path["launch_floor"] = time_kernels(torch, card, dict(
+        cholesky_factor_solve=[sh for sh in calib_shapes if sh[2] > 1
+                               or sh[0] != calib["frames"]],
+        cholesky_solve_factored=[sh for sh in calib_shapes
+                                 if sh[0] == calib["frames"]
+                                 and sh[2] == 1]))
     stamp("kernel times")
     main_path["profile"], per_launch = phase_profile(
         torch, "main", oi_main, main_path["f64"]["ms_per_iteration"])
@@ -2328,7 +2812,14 @@ def main():
             mesh_gloo2_opencv8_1cam_rank0=mesh["gloo2"]["ranks"][0][
                 "launches"][e["name"]],
             uncertainty_odd_frames_opencv8_1cam=uncertainty[
-                "odd_frames_launches"][e["name"]])
+                "odd_frames_launches"][e["name"]],
+            calibrate_from_images_stage1=calib["stage1"]["launches"][
+                e["name"]],
+            calibrate_from_images_stage2=calib["stage2"]["launches"][
+                e["name"]],
+            calibrate_from_images_pnp=(calib["pnp_launches"]
+                                       if e["name"] == "cholesky_factor_solve"
+                                       else 0))
         e["device_us_per_launch_main_path"] = per_launch[e["name"]]
     log(f"[main] summary {json.dumps(main_path)}")
     for name, (_, summary) in list(others.items()) + list(batches.items()):
@@ -2337,6 +2828,7 @@ def main():
     log(f"[callback] summary {json.dumps(callbacks)}")
     log(f"[triangulate] summary {json.dumps(triangulate)}")
     log(f"[uncertainty] summary {json.dumps(uncertainty)}")
+    log(f"[calibrate_from_images] summary {json.dumps(calib)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

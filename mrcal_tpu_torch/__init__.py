@@ -12,9 +12,11 @@ LM loop, ``optimize()`` (with ``check_gradient``), batched solves
 ``CHOLMOD_factorization``, the uncertainty of a calibration
 (``projection_uncertainty``, ``projection_diff`` and the rest of
 ``model_analysis``), ``triangulate`` with the uncertainty of its points,
-the synthetic scenes of ``synthetic_data`` and the helpers of ``utils``.  Every lens model of the
-JAX package projects: the parametric ones, CAHVOR, CAHVORE and the splined
-one.
+the synthetic scenes of ``synthetic_data``, the helpers of ``utils``, and
+the calibration front end: image files (``image``), chessboard detection
+(``detector``) and the seed of a calibration (``calibration``).  Every
+lens model of the JAX package projects: the parametric ones, CAHVOR,
+CAHVORE and the splined one.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.  Everything is float64 unless a caller asks for float32.
@@ -22,8 +24,22 @@ Entry points run on the CUDA card unless the caller passes
 
 from . import _config  # noqa: F401  — TF32 off before any product runs
 
+from .calibration import (  # noqa: F401
+    compute_chessboard_corners,
+    estimate_joint_frame_poses,
+    estimate_monocular_calobject_poses_Rt_tocam,
+    seed_stereographic,
+    traverse_sensor_links,
+)
+
 from .cameramodel import CameramodelParseException, cameramodel  # noqa: F401
+from .detector import (  # noqa: F401
+    chess_response,
+    detect_corners_in_images,
+    find_chessboard_corners,
+)
 from .factorization import CHOLMOD_factorization  # noqa: F401
+from .image import apply_color_map, load_image, save_image  # noqa: F401
 from .lensmodels import (  # noqa: F401
     knots_for_splined_models,
     lensmodel_metadata_and_config,

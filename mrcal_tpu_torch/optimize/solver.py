@@ -380,8 +380,9 @@ class _ObservationRows:
         P, Nobs = pk["intr_full"].shape[0], len(idx)
 
         def per_corner(t):                       # (P, Nobs, n) -> (P*N, n)
+            # (explicit sizes: n may be 0, as with no intrinsics optimized)
             return t.repeat_interleave(self.HW, dim=1).reshape(
-                -1, t.shape[-1])
+                P * Nobs * self.HW, t.shape[-1])
 
         blocks = dict(intr=pk["intr"][:, ici], ext=pk["ext_pad"][:, ice + 1],
                       frame=pk["frame"][:, ifr],
@@ -391,8 +392,9 @@ class _ObservationRows:
             self.cxy.repeat(P, 1), arrays["observations_board"].reshape(-1, 3),
             per_corner(pk["intr_full"][:, ici]),
             per_corner(pk["warp_real"][:, None].expand(P, Nobs, 2)))
-        return r.reshape(P, -1, 2), {k: v.reshape(P, -1, 2, v.shape[-1])
-                                     for k, v in J.items()}
+        return r.reshape(P, -1, 2), {
+            k: v.reshape(P, Nobs * self.HW, 2, v.shape[-1])
+            for k, v in J.items()}
 
     def splined_board(self, pk, arrays, jacobian=True):
         """The board rows of a splined model with the core locked, per
@@ -417,8 +419,9 @@ class _ObservationRows:
         ici_c = ici.repeat_interleave(self.HW)
 
         def per_corner(t):                       # (P, Nobs, n) -> (P*N, n)
+            # (explicit sizes: n may be 0, as with no intrinsics optimized)
             return t.repeat_interleave(self.HW, dim=1).reshape(
-                -1, t.shape[-1])
+                P * Nobs * self.HW, t.shape[-1])
 
         blocks = dict(ext=pk["ext_pad"][:, ice + 1],
                       frame=pk["frame"][:, ifr],
@@ -466,7 +469,7 @@ class _ObservationRows:
         P = pk["intr_full"].shape[0]
 
         def flat(t):
-            return t.reshape(-1, t.shape[-1])
+            return t.reshape(t.shape[0] * t.shape[1], t.shape[-1])
 
         r, J = _rows_and_jacobian(
             self.point_fn, dict(intr=flat(pk["intr"][:, ici]),
@@ -474,7 +477,7 @@ class _ObservationRows:
                                 point=flat(pk["point"][:, ipt])),
             flat(arrays["observations_point"]),
             flat(pk["intr_full"][:, ici]))
-        return r.reshape(P, -1, 2), {k: v.reshape(P, -1, 2, v.shape[-1])
+        return r.reshape(P, -1, 2), {k: v.reshape(P, len(idx), 2, v.shape[-1])
                                      for k, v in J.items()}
 
     def tri(self, pk, arrays):
@@ -1749,12 +1752,6 @@ class _SolveTimer:
             self.t[name] = self.t.get(name, 0.0) + time.perf_counter() - t0
 
 
-def _check_options(kw):
-    if kw.get("device_loop") is False:
-        raise NotImplementedError(
-            "optimize(device_loop=False): the port has one LM loop")
-
-
 def _precision(kw):
     precision = kw.get("precision")
     if precision is None:
@@ -1894,12 +1891,15 @@ def optimize(*, device=None, **kw):
     (sharded_lm_solve_device); every rank calls optimize() with the same
     inputs and gets the same solution and stats (time_s is its own).
 
+    device_loop: the JAX package's choice between its device-resident
+    and its host LM loop, which run the same LM rules; the port has one
+    loop, which serves either value.
+
     Mutates the input numpy arrays (intrinsics, extrinsics_rt_fromref,
     frames_rt_toref, points, calobject_warp, and observation weights for
     outlier marking) like the reference does, and returns a stats dict.
     check_gradient=True compares the Jacobian with central differences
     instead, and returns that report without solving."""
-    _check_options(kw)
     mesh = kw.pop("mesh", None)
     verbose = bool(kw.get("verbose", False))
 
@@ -2016,9 +2016,6 @@ def optimize_batch(problems, *, device=None, **common_kw):
     problem."""
     if not problems:
         return []
-    _check_options(common_kw)
-    for p in problems:
-        _check_options(p)
     kws = [_layout.normalize_inputs(dict(p)) for p in problems]
     specs = [spec_from_inputs(**kw) for kw in kws]
     spec = specs[0]

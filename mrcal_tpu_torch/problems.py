@@ -244,18 +244,14 @@ def sfm_triangulated(Ncameras=8, Npoints=500):
     )
 
 
-def stereo_opencv8_2cam(Nframes=84, model="LENSMODEL_OPENCV8", W=14, H=14,
-                        *, device=None):
-    """The stereo_opencv8_2cam optimization_inputs: the JAX package's test
-    scene (``tests/test_calibration.py`` make_scene) of two cameras of
-    800x600, fx 750 and 770, their distortions randn * 1e-2, camera 1 at
-    the recipe's extrinsics; ``synthesize_board_observations`` draws
-    Nframes poses of a W x H board around 1.2 m that both cameras see
-    whole, the observations are the true geometry's projections with 0.3
-    px of noise, and the geometry is perturbed as ``perturbed_oi(seed=1)``,
-    outlier rejection off.  Fewer frames, a smaller board or another lens
-    model give smaller problems of the same kind.  The projections run on
-    `device` (the card unless given "cpu"); the output is numpy."""
+def stereo_opencv8_2cam_truth(Nframes=84, model="LENSMODEL_OPENCV8", W=14,
+                              H=14, *, device=None):
+    """The true geometry of stereo_opencv8_2cam (the same draws from the
+    recipe's seed): dict of the two cameras' intrinsics (2, N) and their
+    cameramodels, camera 1's extrinsics rt_cam_ref (1, 6), the boards'
+    Rt_ref_boardref (Nframes, 4, 3) and their exact projections q
+    (Nframes, 2, H, W, 2), the warp and the spacing.  The projections run
+    on `device` (the card unless given "cpu"); the output is numpy."""
     cfg = STEREO_OPENCV8_2CAM
     Nc = cfg["Ncameras"]
     np.random.seed(0)
@@ -282,18 +278,41 @@ def stereo_opencv8_2cam(Nframes=84, model="LENSMODEL_OPENCV8", W=14, H=14,
             [np.pi / 6, np.pi / 6, np.pi / 9, 0.2, 0.2, 0.4]),
         Nframes=Nframes, which="all-cameras-must-see-full-board",
         device=device)
+    return dict(intrinsics=intr, models=models, extrinsics_rt_fromref=ext,
+                Rt_ref_boardref=Rt_ref_boardref, q=q, lensmodel=model,
+                imagersize=imagersize, warp=np.array(cfg["warp"]),
+                spacing=cfg["spacing"])
+
+
+def stereo_opencv8_2cam(Nframes=84, model="LENSMODEL_OPENCV8", W=14, H=14,
+                        *, device=None):
+    """The stereo_opencv8_2cam optimization_inputs: the JAX package's test
+    scene (``tests/test_calibration.py`` make_scene) of two cameras of
+    800x600, fx 750 and 770, their distortions randn * 1e-2, camera 1 at
+    the recipe's extrinsics; ``synthesize_board_observations`` draws
+    Nframes poses of a W x H board around 1.2 m that both cameras see
+    whole (stereo_opencv8_2cam_truth), the observations are the true
+    geometry's projections with 0.3 px of noise, and the geometry is
+    perturbed as ``perturbed_oi(seed=1)``, outlier rejection off.  Fewer
+    frames, a smaller board or another lens model give smaller problems of
+    the same kind.  The projections run on `device` (the card unless given
+    "cpu"); the output is numpy."""
+    t = stereo_opencv8_2cam_truth(Nframes, model, W, H, device=device)
+    q, Nc = t["q"], len(t["models"])
     oi = dict(
-        intrinsics=intr, extrinsics_rt_fromref=ext,
-        frames_rt_toref=_rt_from_Rt(torch.as_tensor(Rt_ref_boardref)).numpy(),
+        intrinsics=t["intrinsics"],
+        extrinsics_rt_fromref=t["extrinsics_rt_fromref"],
+        frames_rt_toref=_rt_from_Rt(torch.as_tensor(
+            t["Rt_ref_boardref"])).numpy(),
         observations_board=np.concatenate(
             [q, np.ones(q.shape[:-1] + (1,))], axis=-1).reshape(
                 Nframes * Nc, H, W, 3),
         indices_frame_camintrinsics_camextrinsics=np.array(
             [[f, c, c - 1] for f in range(Nframes) for c in range(Nc)],
             dtype=np.int32),
-        lensmodel=model, imagersizes=np.tile(imagersize, (Nc, 1)),
-        calobject_warp=np.array(cfg["warp"]),
-        calibration_object_spacing=cfg["spacing"])
+        lensmodel=model, imagersizes=np.tile(t["imagersize"], (Nc, 1)),
+        calobject_warp=t["warp"].copy(),
+        calibration_object_spacing=t["spacing"])
     make_perfect_observations(oi, observed_pixel_uncertainty=0.3,
                               device=device)
     oi = perturbed_oi(oi, seed=1)

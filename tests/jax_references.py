@@ -308,3 +308,272 @@ def each_method(names, n):
     return method
 
 
+
+
+# ----------------------------------------------------------------------------
+# tests/test_torch_detector.py
+# ----------------------------------------------------------------------------
+
+def _nonsquare_scene():
+    """tests/test_detector.py::test_nonsquare_grid's scene: 14 x 10 cells
+    through a homography, 13 x 9 inner corners."""
+    Hmat = np.array([[26.0, 1.0, 60.0], [-1.0, 27.0, 45.0], [0.0, 0.0, 1.0]])
+    ss, H_img, W_img = 4, 330, 440
+    ysg, xsg = np.mgrid[0:H_img * ss, 0:W_img * ss].astype(np.float64)
+    xsg = (xsg + 0.5) / ss - 0.5
+    ysg = (ysg + 0.5) / ss - 0.5
+    Hinv = np.linalg.inv(Hmat)
+    w = Hinv[2, 0] * xsg + Hinv[2, 1] * ysg + Hinv[2, 2]
+    bx = (Hinv[0, 0] * xsg + Hinv[0, 1] * ysg + Hinv[0, 2]) / w
+    by = (Hinv[1, 0] * xsg + Hinv[1, 1] * ysg + Hinv[1, 2]) / w
+    inside = (bx >= 0) & (bx < 14) & (by >= 0) & (by < 10)
+    checker = ((np.floor(bx).astype(int) + np.floor(by).astype(int)) % 2)
+    im = np.where(inside, np.where(checker, 40.0, 220.0), 130.0)
+    return im.reshape(H_img, ss, W_img, ss).mean(axis=(1, 3)).astype(
+        np.float32), (13, 9)
+
+
+def detector_scene(name):
+    """(image, (gridn_w, gridn_h)) of a detector scene: the scenes of
+    tests/test_detector.py (frontal, perspective, noise_blobs, nonsquare),
+    a square board that the JAX package numbers as its mirror image
+    (mirrored), and a board of large squares under heavy noise, 8-bit,
+    that the JAX package finds at pyramid level 1 (noisy_level1) or 2
+    (noisy_level2)."""
+    from test_detector import render_chessboard
+    if name == "nonsquare":
+        return _nonsquare_scene()
+    if name == "frontal":
+        return render_chessboard(450, 480, np.array(
+            [[30.0, 0.0, 70.0], [0.0, 30.0, 55.0], [0.0, 0.0, 1.0]]))[0], \
+            (10, 10)
+    if name == "perspective":
+        return render_chessboard(440, 460, np.array(
+            [[24.0, -7.0, 160.0], [6.0, 22.0, 60.0],
+             [1.2e-4, -9e-5, 1.0]]))[0], (10, 10)
+    if name == "mirrored":
+        # a square board that the JAX package numbers as its mirror image
+        return render_chessboard(440, 460, np.array(
+            [[25.0, 5.0, 85.0], [-5.0, 25.0, 90.0], [4e-5, -3e-5, 1.0]]))[0], \
+            (10, 10)
+    if name == "noise_blobs":
+        im = render_chessboard(440, 440, np.array(
+            [[27.0, 2.0, 80.0], [-2.0, 26.0, 70.0], [0.0, 0.0, 1.0]]))[0]
+        im = im + np.random.default_rng(0).normal(0, 3.0, im.shape).astype(
+            np.float32)
+        im[10:25, 10:25] = 255.0
+        im[400:420, 390:425] = 0.0
+        return im, (10, 10)
+    sigma = dict(noisy_level1=25.0, noisy_level2=45.0)[name]
+    im = render_chessboard(760, 780, np.array(
+        [[60.0, 2.0, 90.0], [-2.0, 58.0, 80.0], [0.0, 0.0, 1.0]]))[0]
+    im = im + np.random.default_rng(1).normal(0, sigma, im.shape)
+    return np.clip(im, 0, 255).astype(np.uint8), (10, 10)
+
+
+def detector_references(names, responses, files):
+    """The JAX package's find_chessboard_corners of each scene of names,
+    its chess_response of each scene of responses, 8-bit and float32, and
+    its detect_corners_in_images of the image files `files` (10 x 10):
+    {("corners", name): (corners, level), ("response", name, "uint8" or
+    "float32"): R, "files": detections}."""
+    import mrcal_tpu.detector as jd
+    out = {}
+    if files:
+        out["files"] = jd.detect_corners_in_images(files, 10)
+    for name in names:
+        im, grid = detector_scene(name)
+        out["corners", name] = jd.find_chessboard_corners(im, *grid)
+    for name in responses:
+        im = detector_scene(name)[0]
+        for kind, x in (("uint8", np.clip(im, 0, 255).astype(np.uint8)),
+                        ("float32", im)):
+            out["response", name, kind] = np.asarray(jd.chess_response(x))
+    return out
+
+
+# ----------------------------------------------------------------------------
+# tests/test_torch_calibration.py
+# ----------------------------------------------------------------------------
+
+# the seeding cases: (make_scene keywords, the lens model and the focal
+# scale of the intrinsics given to the monocular PnP: None for the true
+# ones)
+SEEDING_CASES = {
+    "2cam": (dict(Ncameras=2, Nframes=4, W=8, H=6), None),
+    "3cam": (dict(Ncameras=3, Nframes=3, W=7, H=5), None),
+    # a stereographic guess at 0.4 of the focal length: some observations
+    # miss by more than 0.02 (normalized), and the PnP's focal retry runs
+    "retry": (dict(Ncameras=1, Nframes=4, W=8, H=6),
+              ("LENSMODEL_STEREOGRAPHIC", 0.4)),
+}
+
+
+def seeding_references(name):
+    """The JAX package's seeding functions on the seeding case `name`'s
+    make_scene scene with 0.2 px of noise: the monocular PnP with the true
+    intrinsics (or the case's guess), the camera poses and the joint frame
+    poses from it, and seed_stereographic (focal 700).  Returns (the
+    scene's arrays, the references)."""
+    import mrcal_tpu
+    import mrcal_tpu.calibration as jc
+    from test_calibration import make_scene
+    kw, guess = SEEDING_CASES[name]
+    scene = make_scene(model="LENSMODEL_OPENCV4", **kw)
+    scene.pop("models")
+    obs = scene["observations"]
+    np.random.seed(11)
+    obs[..., :2] += np.random.randn(*obs[..., :2].shape) * 0.2
+    idx = scene["indices"][:, :2]
+    Nc = kw["Ncameras"]
+    intr = scene["intrinsics_true"]
+    models = [(scene["lensmodel"], intr[c]) for c in range(Nc)]
+    if guess is not None:
+        models = [(guess[0], intr[c, :4] * [guess[1], guess[1], 1, 1])
+                  for c in range(Nc)]
+    Rt_cf = np.asarray(mrcal_tpu.estimate_monocular_calobject_poses_Rt_tocam(
+        idx, obs, scene["spacing"], models))
+    refs = dict(models=models, Rt_cf=Rt_cf)
+    if Nc > 1:
+        refs["Rt_cam_ref"] = np.asarray(
+            jc._estimate_camera_poses(Rt_cf, idx, Nc))
+        refs["frames"] = np.asarray(mrcal_tpu.estimate_joint_frame_poses(
+            Rt_cf, refs["Rt_cam_ref"][1:], idx, kw["W"], kw["H"],
+            scene["spacing"]))
+        refs["seed"] = [np.asarray(a) for a in mrcal_tpu.seed_stereographic(
+            imagersizes=scene["imagersizes"], focal_estimate=700.0,
+            indices_frame_camera=idx, observations=obs,
+            object_spacing=scene["spacing"])]
+    return scene, refs
+
+
+# the slice's scene: two pinhole cameras of 640 x 480, 0.2 m apart, and
+# SLICE_FRAMES poses of a board of 11 x 9 squares (10 x 8 inner corners,
+# 0.04 m) about 0.85 m away, rendered 4 x 4 supersampled into 8-bit images
+SLICE_FRAMES = 6
+SLICE_BOARD = (10, 8, 0.04)
+SLICE_IMAGER = (640, 480)
+SLICE_K = [np.array([[520.0, 0, 322.0], [0, 518.0, 236.0], [0, 0, 1]]),
+           np.array([[540.0, 0, 316.0], [0, 541.0, 243.0], [0, 0, 1]])]
+SLICE_RT_CAM1_REF = np.array([0.01, -0.02, 0.005, -0.2, 0.01, 0.005])
+SLICE_GLOBS = ("*-cam0.png", "*-cam1.png")
+
+
+def _R_from_r(r):
+    th = np.linalg.norm(r)
+    if th < 1e-12:
+        return np.eye(3)
+    k = r / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def slice_images():
+    """The slice's images, {filename: uint8 (480, 640)} named
+    frame{f:03d}-cam{c}.png, and the true geometry: rt_cam_ref of camera
+    1, rt_ref_frame of each frame (the board's corner (0, 0) at the
+    frame's origin, x along its rows)."""
+    W, H, spacing = SLICE_BOARD
+    Wpx, Hpx = SLICE_IMAGER
+    rng = np.random.default_rng(7)
+    R1 = _R_from_r(SLICE_RT_CAM1_REF[:3])
+    t1 = SLICE_RT_CAM1_REF[3:]
+    center = np.array([(W - 1) * spacing / 2, (H - 1) * spacing / 2, 0])
+    images, frames = {}, []
+    ss = 4
+    ys, xs = np.mgrid[0:Hpx * ss, 0:Wpx * ss].astype(np.float64)
+    xs = (xs + 0.5) / ss - 0.5
+    ys = (ys + 0.5) / ss - 0.5
+    for f in range(SLICE_FRAMES):
+        r = rng.uniform(-1, 1, 3) * np.array([0.35, 0.35, 0.15])
+        t = np.array([0.1, 0.0, 0.85]) + rng.uniform(-1, 1, 3) * \
+            np.array([0.04, 0.04, 0.08])
+        R = _R_from_r(r)
+        t = t - R @ center                 # rotate about the board's center
+        frames.append(np.concatenate([r, t]))
+        for c, (Rc, tc) in enumerate(((np.eye(3), np.zeros(3)), (R1, t1))):
+            Rcb, tcb = Rc @ R, Rc @ t + tc
+            # board cells (x / spacing + 1): inner vertex (i, j) at cell
+            # coordinate (i + 1, j + 1)
+            Hm = SLICE_K[c] @ np.stack(
+                [Rcb[:, 0] * spacing, Rcb[:, 1] * spacing,
+                 tcb - (Rcb[:, 0] + Rcb[:, 1]) * spacing], axis=1)
+            Hinv = np.linalg.inv(Hm)
+            w = Hinv[2, 0] * xs + Hinv[2, 1] * ys + Hinv[2, 2]
+            bx = (Hinv[0, 0] * xs + Hinv[0, 1] * ys + Hinv[0, 2]) / w
+            by = (Hinv[1, 0] * xs + Hinv[1, 1] * ys + Hinv[1, 2]) / w
+            inside = (bx >= 0) & (bx < W + 1) & (by >= 0) & (by < H + 1)
+            checker = (np.floor(bx).astype(int)
+                       + np.floor(by).astype(int)) % 2
+            im = np.where(inside, np.where(checker, 40.0, 220.0), 130.0)
+            im = im.reshape(Hpx, ss, Wpx, ss).mean(axis=(1, 3))
+            images[f"frame{f:03d}-cam{c}.png"] = np.round(im).astype(np.uint8)
+    return images, SLICE_RT_CAM1_REF, np.array(frames)
+
+
+def slice_optimization_inputs(obs, idx_fc, seed):
+    """The staged solves' optimization_inputs from the seed: OPENCV4, the
+    seeded core with zero distortions, the seeded geometry, no warp."""
+    intr_seed, ext_seed, frames_seed = seed
+    return dict(
+        intrinsics=np.concatenate(
+            [intr_seed, np.zeros((len(intr_seed), 4))], axis=1),
+        extrinsics_rt_fromref=ext_seed.copy(),
+        frames_rt_toref=frames_seed.copy(),
+        observations_board=obs.copy(),
+        indices_frame_camintrinsics_camextrinsics=np.concatenate(
+            [idx_fc, idx_fc[:, 1:] - 1], axis=1).astype(np.int32),
+        lensmodel="LENSMODEL_OPENCV4",
+        imagersizes=np.tile(np.array(SLICE_IMAGER), (2, 1)),
+        calobject_warp=np.zeros(2),
+        calibration_object_spacing=SLICE_BOARD[2],
+        do_apply_outlier_rejection=False)
+
+
+SLICE_STAGE1 = dict(do_optimize_intrinsics_core=False,
+                    do_optimize_intrinsics_distortions=False,
+                    do_optimize_calobject_warp=False)
+
+
+def slice_references():
+    """The JAX package's calibration front end on the slice's images
+    (slice_images()): each image's detection, the corners.vnl text and
+    compute_chessboard_corners' arrays, seed_stereographic (focal 500),
+    the two staged optimize() calls (geometry, then everything), and the
+    valid-intrinsics region of camera 0."""
+    import io
+    import mrcal_tpu
+    import mrcal_tpu.calibration as jc
+    from mrcal_tpu.detector import find_chessboard_corners
+    W, H, spacing = SLICE_BOARD
+    images = slice_images()[0]
+    out = dict(detections={})
+    lines = ["# filename x y level\n"]
+    for fname, im in images.items():
+        corners, level = find_chessboard_corners(im, W, H)
+        out["detections"][fname] = (corners, level)
+        if corners is None:
+            lines.append(f"{fname} - - -\n")
+            continue
+        for x, y in corners:
+            lines.append(f"{fname} {x:.5f} {y:.5f} {level}\n")
+    out["vnl"] = "".join(lines)
+    obs, idx_fc, paths = mrcal_tpu.compute_chessboard_corners(
+        W, H, globs_per_camera=SLICE_GLOBS,
+        corners_cache_vnl=io.StringIO(out["vnl"]))
+    out["corners"] = (obs, idx_fc, paths)
+    seed = [np.asarray(a) for a in mrcal_tpu.seed_stereographic(
+        imagersizes=np.tile(np.array(SLICE_IMAGER), (2, 1)),
+        focal_estimate=500.0, indices_frame_camera=idx_fc,
+        observations=obs, object_spacing=spacing)]
+    out["seed"] = seed
+    oi = slice_optimization_inputs(obs, idx_fc, seed)
+    for stage, extra in (("stage1", SLICE_STAGE1), ("stage2", {})):
+        stats = mrcal_tpu.optimize(**dict(oi, **extra))
+        out[stage] = dict(rms=stats["rms_reproj_error__pixels"],
+                          b=np.asarray(stats["b_packed"]),
+                          intrinsics=oi["intrinsics"].copy(),
+                          extrinsics=oi["extrinsics_rt_fromref"].copy())
+    model = mrcal_tpu.cameramodel(optimization_inputs=oi, icam_intrinsics=0)
+    out["region"] = np.asarray(jc._compute_valid_intrinsics_region(model))
+    return out

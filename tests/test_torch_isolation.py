@@ -1,10 +1,11 @@
 """The port stands alone: importing mrcal_tpu_torch (the splined path,
 the multi-device package, the uncertainty modules, the .cahvor format,
-utils and synthetic_data included, and building the splined bench
-problem) loads neither jax
-nor mrcal_tpu, and no module of the port (nor chip_smoke.py) imports
-either.  The public entry points of the projection, utils and uncertainty
-modules run on the card unless told otherwise."""
+utils, synthetic_data and the calibration front end (image, detector,
+calibration) included, and building the splined bench problem) loads
+neither jax nor mrcal_tpu, and no module of the port (nor chip_smoke.py)
+imports either.  The public entry points of the projection, utils,
+uncertainty, image, detector and calibration modules run on the card
+unless told otherwise."""
 
 import ast
 import os
@@ -39,7 +40,9 @@ def test_import_loads_no_jax():
             "mrcal_tpu_torch.parallel, mrcal_tpu_torch.projections, "
             "mrcal_tpu_torch.factorization, mrcal_tpu_torch.cameramodel, "
             "mrcal_tpu_torch.model_analysis, mrcal_tpu_torch.utils, "
-            "mrcal_tpu_torch.cahvor, mrcal_tpu_torch.synthetic_data; "
+            "mrcal_tpu_torch.cahvor, mrcal_tpu_torch.synthetic_data, "
+            "mrcal_tpu_torch.image, mrcal_tpu_torch.detector, "
+            "mrcal_tpu_torch.calibration; "
             "from mrcal_tpu_torch.lensmodels import splined_deltau; "
             "from mrcal_tpu_torch.optimize.solver import "
             "build_normal_equations_splined, lm_solve; "
@@ -87,6 +90,16 @@ def _entry_point_calls():
     q = np.array([[100., 200.], [400., 300.], [700., 500.]])
     rt = np.array([0.1, -0.2, 0.3, 1.0, 2.0, 3.0])
     Rt = m.Rt_from_rt(rt, device="cpu").numpy()
+    # a 4 x 4-square board of 12-px squares: 3 x 3 inner corners
+    ys, xs = np.mgrid[0:80, 0:80]
+    board_image = np.where((xs // 12 + ys // 12) % 2, 40, 220).astype(
+        np.uint8)
+    board_image[48:, :] = board_image[:, 48:] = 130
+    idx_fc = oi["indices_frame_camintrinsics_camextrinsics"][:, :2]
+    spacing = oi["calibration_object_spacing"]
+    Rt_cf = m.estimate_monocular_calobject_poses_Rt_tocam(
+        idx_fc, oi["observations_board"], spacing, [(lens, intr)],
+        device="cpu")
     return {
         "project": (m.project, (v, lens, intr)),
         "unproject": (m.unproject, (q, lens, intr)),
@@ -138,6 +151,21 @@ def _entry_point_calls():
         "residuals_point": (m.residuals_point, (oi,)),
         "triangulate": (m.triangulate, (
             np.stack([q, q + [[-30., 0.]]], axis=-2), (model, model))),
+        "apply_color_map": (m.apply_color_map, (v,)),
+        "chess_response": (m.chess_response, (board_image,)),
+        "find_chessboard_corners": (m.find_chessboard_corners,
+                                    (board_image, 3, 3)),
+        "estimate_monocular_calobject_poses_Rt_tocam": (
+            m.estimate_monocular_calobject_poses_Rt_tocam,
+            (idx_fc, oi["observations_board"], spacing,
+             [(lens, intr)])),
+        "estimate_joint_frame_poses": (
+            m.estimate_joint_frame_poses,
+            (Rt_cf, np.zeros((0, 4, 3)), idx_fc, 4, 3, spacing)),
+        "seed_stereographic": (
+            m.seed_stereographic,
+            (oi["imagersizes"], 800.0, idx_fc, oi["observations_board"],
+             spacing)),
         "synthesize_board_observations": (
             lambda **kw: m.synthesize_board_observations(
                 [model], object_width_n=4, object_height_n=3,
@@ -168,7 +196,10 @@ ENTRY_POINTS = ["project", "unproject", "project_pinhole",
                 "apply_homography", "ingest_packed_state",
                 "hypothesis_board_corner_positions", "measurements_board",
                 "residuals_point", "triangulate",
-                "synthesize_board_observations"]
+                "synthesize_board_observations", "apply_color_map",
+                "chess_response", "find_chessboard_corners",
+                "estimate_monocular_calobject_poses_Rt_tocam",
+                "estimate_joint_frame_poses", "seed_stereographic"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -208,6 +208,35 @@ def test_optimize_f32_and_mixed_reach_the_f64_optimum(f64_solves, precision):
         assert stats["niterations_polish"] > 0
 
 
+@pytest.fixture(scope="module")
+def host_loop_solve(problems):
+    """optimization_inputs that ask for the host loop, as
+    tests/test_uncertainty_matrix.py builds them, and the JAX package's
+    solve of them (f64 on its CPU backend)."""
+    oi = _copy(problems["board"].oi)
+    oi["device_loop"] = False
+    oi_j = _copy(oi)
+    return oi, mrcal_tpu.optimize(**oi_j), oi_j
+
+
+@pytest.mark.parametrize("entry", ["optimize", "optimize_batch"])
+def test_device_loop_false_matches_the_jax_host_loop(host_loop_solve,
+                                                     entry):
+    """device_loop=False runs the port's one LM loop: optimize() and
+    optimize_batch() give the JAX package's host-loop solve, and write it
+    into the caller's arrays."""
+    oi, stats_j, oi_j = host_loop_solve
+    oi_t = _copy(oi)
+    stats_t = (t_optimize(device="cpu", **oi_t) if entry == "optimize"
+               else tsolver.optimize_batch([oi_t], device="cpu")[0])
+    rms_j = stats_j["rms_reproj_error__pixels"]
+    assert abs(stats_t["rms_reproj_error__pixels"] - rms_j) <= 1e-10 * rms_j
+    assert np.abs(stats_t["b_packed"] - np.asarray(stats_j["b_packed"])
+                  ).max() < 1e-5
+    for k in ("intrinsics", "extrinsics_rt_fromref", "frames_rt_toref"):
+        _close(oi_t[k], oi_j[k], 1e-5)
+
+
 def test_optimize_without_device_needs_a_card(problems):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
