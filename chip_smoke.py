@@ -126,6 +126,31 @@ nonzero:
    valid-intrinsics region (contourpy, else the bounding box: the log
    says which); each stage's wall; and, no gate, find_chessboard_corners
    on one 6000 x 4000 render of a board.
+   dense_stereo: the library half of mrcal-stereo on
+   stereo_opencv8_2cam's true models (two OPENCV8 cameras of 800 x 600,
+   0.22 m apart): the pair rendered on the card (4 x 4 supersamples of a
+   textured plane 2.4-4.0 m away, tilted in depth, and a textured box at
+   1.45-1.75 m), rectified_system (LATLON, 50 x 40 degrees, the
+   cameras' own resolution: 655 x 521), rectification_maps and
+   transform_image of both 8-bit images; census + SGM (disparity
+   0-127, its stages timed apart), stereo_range and stereo_unproject of
+   its disparity, stereo_matching_ncc (block 9) on the same pair;
+   match_feature of 50 seeded features of camera 0 in camera 1 (the
+   estimate within 3 px of the truth); mrcal-reproject-image's flow
+   (camera 0 to its corner-fit pinhole, then from a copy with a
+   valid-intrinsics region, masked).  Each against the CPU in the same
+   process: the maps (and the reprojection's) to 2 float32 ulps, the
+   images equal but for 0.1 % of the pixels by one level, census, cost
+   volume, aggregation and SGM disparity bit-equal, NCC the same
+   disparity wherever the best score beats the second by 1e-5 (0.1 % of
+   the pixels otherwise), ranging to 1e-12, matches to 1e-9 px.  The
+   SGM disparity against the true geometry on the plane's and the box's
+   interiors (tests/test_stereo_sgm.py's gates), and its range (median
+   relative error below 0.02).  Then a synthetic rectified 1920 x 1080
+   pair (a plane whose disparity ramps from 40 to 160 px, a box at 230)
+   by SGM with disparity 0-255 on the card alone: its wall, its peak
+   memory and the same truth gates.  No batched-Cholesky kernel may
+   launch.  Each stage's warm wall on the card beside the CPU's.
 6. mesh: the multi-device path (mrcal_tpu_torch.parallel), the
    observations sharded over a torch.distributed group.
    nccl1: a one-rank NCCL group (a file store in a temporary directory,
@@ -187,7 +212,8 @@ nonzero:
 9. profile: the first 16 iterations of one more f64 solve of each
    configuration, and of the fleet and the splined fleet, under
    torch.profiler (device time by kernel, launches per iteration,
-   busy share).
+   busy share); one SGM call on dense_stereo's rectified pair and one on
+   its 2-MP pair (device kernels, busy share, the top device ops).
 10. the last line: {"ok": true, "device": {...}}.
 
 The timed solves come before any profiler session or kernel timing, so
@@ -2642,6 +2668,575 @@ def phase_calibrate(torch):
                 region_branch=branch, walls=walls, **stages)
 
 
+# [dense_stereo]: stereo_opencv8_2cam's true pair (two OPENCV8 cameras of
+# 800 x 600, 0.22 m apart) rendered at full resolution on the card, looking
+# at a textured plane tilted in depth and a textured box in front of it;
+# rectified, matched by census+SGM and NCC, and ranged; then a synthetic
+# rectified 2-MP pair matched by SGM alone
+DS_DEVICE = "cuda"
+DS_SS = CAL_SS                          # supersamples per pixel side
+DS_RECT = dict(az_fov_deg=50, el_fov_deg=40)
+DS_DMAX = 127
+DS_NCC_BLOCK = 9
+# the plane n.p = n.(0, 0, DS_PLANE_Z) in camera 0's frame, and the box's
+# corners (m): 2.4-4.0 m, and 1.45-1.75 m
+DS_PLANE_N = np.array([-0.45, 0.15, 1.0])
+DS_PLANE_Z = 3.0
+DS_BOX = (np.array([-0.45, -0.30, 1.45]), np.array([0.05, 0.10, 1.75]))
+DS_TEXEL = 0.004                        # m per texel of the textures
+DS_TEX = 1024                           # texture side (texels), wrapped
+DS_SEED = 12
+DS_FEATURES = 50
+DS_FEATURE_MARGIN = 48                  # px from camera 0's edges
+DS_ESTIMATE_PX = 3.0                    # q1_estimate: the truth + U(-3, 3)
+DS_INTERIOR = 6                         # px off each region's edges
+DS_RAW_MARGIN = 4                       # px inside each raw image
+DS_LARGE = (1080, 1920)
+DS_LARGE_DMAX = 255
+DS_LARGE_RAMP = (40.0, 160.0)           # the plane's disparity, x = 0 .. W
+DS_LARGE_BOX = (300, 780, 900, 1400, 230)   # y0, y1, x0, x1, disparity
+# gates
+DS_MAP_ULPS = 2
+DS_IMAGE_SHARE = 1e-3                   # pixels that may differ by 1 level
+DS_NCC_MARGIN = 1e-5
+DS_NCC_SHARE = 1e-3
+DS_NCC_PX = 1e-2                        # the same disparity, within this
+DS_RANGE_RTOL = 1e-12
+DS_MATCH_PX = 1e-9
+DS_VALID_MIN = 0.5                      # tests/test_stereo_sgm.py:56-68
+DS_MEDIAN_PX = 0.5
+DS_WITHIN_PX = 1.5
+DS_WITHIN_SHARE = 0.9
+DS_RANGE_MEDIAN_REL = 0.02              # tests/test_stereo_sgm.py:131
+
+
+def ds_textures(torch, dev):
+    """The plane's and the box's textures, (DS_TEX, DS_TEX) float64 on dev:
+    band-limited noise (tests/test_stereo_sgm.py's recipe, wrapped)
+    stretched to a mean of 128 (plane) and 110 (box), sd 40."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.default_rng(DS_SEED)
+    out = []
+    for mean in (128.0, 110.0):
+        t = gaussian_filter(rng.uniform(0, 255, (DS_TEX, DS_TEX)), 1.0,
+                            mode="wrap")
+        out.append(torch.as_tensor((t - t.mean()) / t.std() * 40 + mean,
+                                   device=dev))
+    return out
+
+
+def ds_sample(torch, tex, u, w):
+    """Bilinear samples of the wrapped texture at texel coordinates
+    (u, w)."""
+    n = tex.shape[0]
+    u0, w0 = torch.floor(u), torch.floor(w)
+    fu, fw = u - u0, w - w0
+    iu = torch.remainder(u0.to(torch.int64), n)
+    iw = torch.remainder(w0.to(torch.int64), n)
+    iu1, iw1 = torch.remainder(iu + 1, n), torch.remainder(iw + 1, n)
+    return ((1 - fw) * ((1 - fu) * tex[iw, iu] + fu * tex[iw, iu1])
+            + fw * ((1 - fu) * tex[iw1, iu] + fu * tex[iw1, iu1]))
+
+
+def ds_hit(torch, o, v):
+    """The nearest hit (s > 0) of the rays o + s v ((3,), (N, 3) in camera
+    0's frame) with the scene: s, on_box, and each hit's texture
+    coordinates (u, w) in texels (the plane's own axes; the box face's
+    two other coordinates)."""
+    dev, f64 = v.device, torch.float64
+    n = torch.as_tensor(DS_PLANE_N / np.linalg.norm(DS_PLANE_N), device=dev)
+    s_plane = (n[2] * DS_PLANE_Z - o @ n) / (v @ n)
+    lo, hi = (torch.as_tensor(b, device=dev) for b in DS_BOX)
+    t1, t2 = (lo - o) / v, (hi - o) / v
+    near = torch.minimum(t1, t2)
+    t_in, face = near.max(dim=-1)
+    t_out = torch.maximum(t1, t2).min(dim=-1).values
+    on_box = (t_in <= t_out) & (t_in > 0) & (t_in < s_plane)
+    s = torch.where(on_box, t_in, s_plane)
+    p = o + s[:, None] * v
+    e1 = torch.linalg.cross(torch.tensor([0.0, 1.0, 0.0], dtype=f64,
+                                         device=dev), n)
+    e1 = e1 / torch.linalg.vector_norm(e1)
+    e2 = torch.linalg.cross(n, e1)
+    pb = torch.stack([torch.gather(p, 1, ((face + k) % 3)[:, None])[:, 0]
+                      for k in (1, 2)], dim=-1)
+    uw = torch.where(on_box[:, None], pb, torch.stack([p @ e1, p @ e2], -1))
+    return s, on_box, uw / DS_TEXEL
+
+
+def ds_render(torch, truth, textures, dev):
+    """The two cameras' 8-bit images (Hpx, Wpx) of the scene: each of a
+    pixel's DS_SS x DS_SS supersamples (cal_rays) meets the scene, the
+    texture's value there, averaged and rounded."""
+    from mrcal_tpu_torch.poseutils import _invert_rt, _Rt_from_rt
+    Wpx, Hpx = (int(v) for v in truth["imagersize"])
+    out = []
+    for c in range(2):
+        rt_cr = (np.zeros(6) if c == 0
+                 else truth["extrinsics_rt_fromref"][c - 1])
+        Rt_rc = _Rt_from_rt(_invert_rt(torch.as_tensor(rt_cr, device=dev)))
+        v = cal_rays(torch, truth, c, dev) @ Rt_rc[:3, :].T
+        _, on_box, uw = ds_hit(torch, Rt_rc[3], v)
+        del v
+        val = torch.where(on_box, ds_sample(torch, textures[1], *uw.T),
+                          ds_sample(torch, textures[0], *uw.T))
+        val = val.reshape(Hpx, DS_SS, Wpx, DS_SS).mean((1, 3))
+        out.append(torch.round(val.clamp(0, 255)).to(torch.uint8))
+    return out
+
+
+def ds_truth(torch, models, rect, dev):
+    """The true rectified geometry: each rectified pixel of camera 0
+    unprojected, its ray met with the scene, the hit projected into rect1
+    and into both raw cameras by the port's own functions.  Returns the
+    true disparity and range (Nel, Naz), and the interiors of the plane
+    and of the box (seen by both cameras, inside both raw images and
+    rect1, DS_INTERIOR px from any edge of the region)."""
+    from mrcal_tpu_torch import project, unproject
+    from mrcal_tpu_torch.poseutils import _transform_point_Rt
+    Naz, Nel = (int(v) for v in rect[0].imagersize())
+    yy, xx = torch.meshgrid(
+        torch.arange(Nel, dtype=torch.float64, device=dev),
+        torch.arange(Naz, dtype=torch.float64, device=dev), indexing="ij")
+    q0 = torch.stack([xx, yy], -1).reshape(-1, 2)
+    v = unproject(q0, *rect[0].intrinsics(), device=dev)
+    Rt_r0 = torch.as_tensor(rect[0].Rt_ref_cam(), device=dev)
+    s, on_box, _ = ds_hit(torch, Rt_r0[3], v @ Rt_r0[:3, :].T)
+    p = Rt_r0[3] + s[:, None] * (v @ Rt_r0[:3, :].T)
+    rng_true = torch.linalg.vector_norm(
+        _transform_point_Rt(torch.as_tensor(rect[0].Rt_cam_ref(), device=dev),
+                            p), dim=-1)
+    q1 = project(_transform_point_Rt(
+        torch.as_tensor(rect[1].Rt_cam_ref(), device=dev), p),
+        *rect[1].intrinsics(), device=dev)
+    disp = q0[:, 0] - q1[:, 0]
+    # seen by camera 1: nothing nearer on the ray from its center
+    c1 = torch.as_tensor(models[1].Rt_ref_cam()[3], device=dev)
+    s1, _, _ = ds_hit(torch, c1, p - c1)
+    good = (s1 > 1 - 1e-9) & (q1[:, 0] >= 0)
+    for m in models:
+        q = project(_transform_point_Rt(
+            torch.as_tensor(m.Rt_cam_ref(), device=dev), p),
+            *m.intrinsics(), device=dev)
+        W, H = (int(x) for x in m.imagersize())
+        m = DS_RAW_MARGIN
+        good &= ((q[:, 0] >= m) & (q[:, 0] <= W - 1 - m)
+                 & (q[:, 1] >= m) & (q[:, 1] <= H - 1 - m))
+    regions = {}
+    for name, on in (("plane", ~on_box), ("box", on_box)):
+        bad = ~(good & on).reshape(1, 1, Nel, Naz)
+        k = DS_INTERIOR
+        near_bad = torch.nn.functional.max_pool2d(
+            bad.to(torch.float32), 2 * k + 1, stride=1, padding=k)[0, 0]
+        interior = near_bad == 0
+        interior[:k] = interior[-k:] = False
+        interior[:, :k] = interior[:, -k:] = False
+        regions[name] = interior
+    return (disp.reshape(Nel, Naz), rng_true.reshape(Nel, Naz), regions,
+            float((q1[:, 1] - q0[:, 1]).abs().max()))
+
+
+def ds_truth_gate(phase, what, disp, d_true, regions, dmin=0):
+    """The JAX test's gates (tests/test_stereo_sgm.py:56-68) on each
+    interior region: valid on more than half, median error below 0.5 px,
+    more than 90 % within 1.5 px."""
+    out = {}
+    valid = disp > 0
+    for name, region in regions.items():
+        sel = region & valid
+        share = float(sel.sum()) / max(int(region.sum()), 1)
+        err = (disp - d_true).abs()[sel]
+        med = float(err.median()) if err.numel() else float("inf")
+        within = float((err < DS_WITHIN_PX).float().mean()) \
+            if err.numel() else 0.0
+        out[name] = dict(pixels=int(region.sum()), valid_share=share,
+                         median_err_px=med, within_share=within)
+        log(f"[{phase}] {what} vs the truth, {name} interior "
+            f"({int(region.sum())} px): valid {share * 100:.2f} %, median "
+            f"error {med:.4f} px, {within * 100:.2f} % within "
+            f"{DS_WITHIN_PX} px")
+        if not (share > DS_VALID_MIN and med < DS_MEDIAN_PX
+                and within > DS_WITHIN_SHARE):
+            fail(f"[{phase}] {what}, {name}: valid {share}, median {med}, "
+                 f"within {within}")
+    return out
+
+
+def ds_images_gate(phase, what, card, cpu):
+    """Card and CPU images equal but for at most DS_IMAGE_SHARE of the
+    pixels, by one level."""
+    diff = np.abs(card.astype(np.int64) - cpu)
+    share = float((diff > 0).mean())
+    log(f"[{phase}] {what}: card vs CPU differ at {share * 100:.4f} % of "
+        f"the pixels, by at most {int(diff.max())}")
+    if card.dtype != cpu.dtype or diff.max() > 1 or share > DS_IMAGE_SHARE:
+        fail(f"[{phase}] {what}: {share} of the pixels differ, by up to "
+             f"{diff.max()} ({card.dtype}, {cpu.dtype})")
+    return share
+
+
+def ds_rel(a, b):
+    a, b = (np.asarray(x.cpu() if hasattr(x, "cpu") else x) for x in (a, b))
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def ds_large_pair():
+    """A synthetic rectified 1920 x 1080 pair, as tests/test_stereo_sgm.py
+    makes its pairs (:33-68): a textured plane whose disparity ramps from
+    DS_LARGE_RAMP[0] to [1] across the image (image 1 resampled along
+    its rows), and a textured box at a constant disparity in front of
+    it, occluding.  Returns the float32 pair, the true disparity and the
+    interiors of the plane and of the box."""
+    from scipy.ndimage import gaussian_filter
+    H, W = DS_LARGE
+    d0, d1 = DS_LARGE_RAMP
+    y0, y1, x0, x1, d_fg = DS_LARGE_BOX
+    rng = np.random.default_rng(DS_SEED + 1)
+
+    def texture():
+        return gaussian_filter(rng.uniform(0, 255, (H, W + 320)).astype(
+            np.float32), 1.0) * 4
+    tex_bg, tex_fg = texture(), texture()
+    k = (d1 - d0) / W
+    x = np.arange(W, dtype=np.float64)
+    im0 = tex_bg[:, 32:32 + W].copy()
+    # the point at x in image 0 lands at x - d(x) in image 1
+    src = 32 + (x + d0) / (1 - k)
+    cols = np.arange(tex_bg.shape[1])
+    im1 = np.stack([np.interp(src, cols, row) for row in tex_bg]).astype(
+        np.float32)
+    im0[y0:y1, x0:x1] = tex_fg[y0:y1, 32 + x0:32 + x1]
+    im1[y0:y1, x0 - d_fg:x1 - d_fg] = tex_fg[y0:y1, 32 + x0:32 + x1]
+    d_true = np.broadcast_to(d0 + k * x, (H, W)).copy()
+    d_true[y0:y1, x0:x1] = d_fg
+    fg = np.zeros((H, W), bool)
+    fg[y0 + 5:y1 - 5, x0 + 5:x1 - 5] = True
+    bg = np.ones((H, W), bool)
+    bg[y0 - 6:y1 + 6, x0 - d_fg - 6:x1 + 6] = False
+    bg[:, :int(np.ceil(d0 / (1 - k))) + 2] = False
+    bg[:6] = bg[-6:] = False
+    bg[:, -6:] = False
+    return im0, im1, d_true, dict(plane=bg, box=fg)
+
+
+def ds_sgm_stages(torch, im0, im1, dmax, sync):
+    """stereo_matching_sgm(disparity_min=0, disparity_max=dmax) by its
+    stages, each timed (sync: the device's synchronize, or None): the
+    census codes, the cost volume, the aggregation, the disparity and the
+    walls."""
+    from mrcal_tpu_torch import stereo_sgm as sgm
+
+    def timed(fn):
+        if sync:
+            sync()
+        t0 = time.perf_counter()
+        out = fn()
+        if sync:
+            sync()
+        return out, time.perf_counter() - t0
+    walls = {}
+    (c0, c1), walls["census"] = timed(lambda: (
+        sgm.census_transform(im0), sgm.census_transform(im1)))
+    cost, walls["cost_volume"] = timed(
+        lambda: sgm.census_cost_volume(c0, c1, 0, dmax))
+    agg, walls["passes"] = timed(lambda: sgm._sgm_aggregate(cost, 6.0, 96.0))
+    disp, walls["wta_lr"] = timed(lambda: sgm._sgm_disparity(agg, 0, 1))
+    return (c0, c1, cost, agg, disp), walls
+
+
+def phase_dense_stereo(torch):
+    """[dense_stereo]: the library half of mrcal-stereo on
+    stereo_opencv8_2cam's true models at full resolution, card against
+    CPU and against the true geometry; then a 2-MP rectified pair."""
+    from mrcal_tpu_torch import (cameramodel, image_transformation_map,
+                                 match_feature, pinhole_model_for_reprojection,
+                                 problems, rectification_maps,
+                                 rectified_system, stereo_matching_ncc,
+                                 stereo_matching_sgm, stereo_range,
+                                 stereo_unproject, transform_image)
+    from mrcal_tpu_torch.ops import batched_cholesky as bc
+    from mrcal_tpu_torch.poseutils import _transform_point_Rt
+    from mrcal_tpu_torch.stereo import _ncc_scores
+    phase = "dense_stereo"
+    dev = torch.device(DS_DEVICE)
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    bc.reset_launches()
+    card, host = {}, {}                 # walls (s), warm on the card
+
+    def on_card(name, fn, reps=2):
+        for _ in range(reps - 1):
+            fn()
+        out, card[name] = _sync_time(torch, fn)
+        return out
+
+    def on_cpu(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        host[name] = time.perf_counter() - t0
+        return out
+
+    truth = problems.stereo_opencv8_2cam_truth(device=dev)
+    models = truth["models"]
+    textures = ds_textures(torch, dev)
+    (raw0, raw1), card["render"] = _sync_time(
+        torch, lambda: ds_render(torch, truth, textures, dev))
+    raw = [raw0.cpu().numpy(), raw1.cpu().numpy()]
+    log(f"[{phase}] rendered the pair on the card ({raw[0].shape[1]} x "
+        f"{raw[0].shape[0]}, {DS_SS} x {DS_SS} supersamples) in "
+        f"{card['render']:.3f} s; means {raw[0].mean():.2f}, "
+        f"{raw[1].mean():.2f}")
+
+    # rectification: the system, the maps and the remap of both images
+    rect = on_card("rectified_system", lambda: rectified_system(
+        models, **DS_RECT, device=dev))
+    rect_cpu = on_cpu("rectified_system", lambda: rectified_system(
+        models, **DS_RECT, device=cpu))
+    for a, b in zip(rect, rect_cpu):
+        if ds_rel(a.intrinsics()[1], b.intrinsics()[1]) > 1e-12 or \
+                np.abs(a.extrinsics_rt_fromref()
+                       - b.extrinsics_rt_fromref()).max() > 1e-12:
+            fail(f"[{phase}] rectified_system: card and CPU differ")
+    Naz, Nel = (int(v) for v in rect[0].imagersize())
+    maps = on_card("maps", lambda: rectification_maps(models, rect,
+                                                      device=dev))
+    maps_cpu = on_cpu("maps", lambda: rectification_maps(models, rect,
+                                                         device=cpu))
+    ulps = np.abs(maps - maps_cpu) / np.spacing(np.abs(maps_cpu))
+    log(f"[{phase}] rectified {Naz} x {Nel} (LATLON); maps card vs CPU: "
+        f"{float(ulps.max()):.1f} float32 ulps at most")
+    if maps.shape != (2, Nel, Naz, 2) or maps.dtype != np.float32 or \
+            not ulps.max() <= DS_MAP_ULPS:
+        fail(f"[{phase}] maps: {maps.shape} {maps.dtype}, {ulps.max()} ulps")
+    rectified = on_card("remap", lambda: [
+        transform_image(raw[i], maps[i], device=dev) for i in range(2)])
+    rectified_cpu = on_cpu("remap", lambda: [
+        transform_image(raw[i], maps_cpu[i], device=cpu) for i in range(2)])
+    remap_share = [ds_images_gate(phase, f"rectified image {i}",
+                                  rectified[i], rectified_cpu[i])
+                   for i in range(2)]
+
+    # census + SGM by stages, on the card (warm) and on the CPU, on the
+    # card's rectified pair: bit-equal
+    im = [torch.as_tensor(r, device=dev).to(torch.float32) for r in rectified]
+    sync = torch.cuda.synchronize
+    ds_sgm_stages(torch, *im, DS_DMAX, sync)
+    stages, walls = ds_sgm_stages(torch, *im, DS_DMAX, sync)
+    card.update(walls)
+    stages_cpu, walls = ds_sgm_stages(torch, *(x.cpu() for x in im),
+                                      DS_DMAX, None)
+    host.update(walls)
+    for name, a, b in zip(("census0", "census1", "cost volume", "aggregated",
+                           "disparity"), stages, stages_cpu):
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            fail(f"[{phase}] {name}: card and CPU differ")
+    disp = on_card("sgm", lambda: stereo_matching_sgm(
+        rectified[0], rectified[1], disparity_min=0, disparity_max=DS_DMAX,
+        device=dev))
+    if disp.dtype != torch.float32 or not torch.equal(disp, stages[-1]):
+        fail(f"[{phase}] stereo_matching_sgm is not its stages")
+    log(f"[{phase}] census, cost volume ({DS_DMAX + 1} x {Nel} x {Naz}, "
+        f"{stages[2].numel() * 4 / 1e6:.1f} MB), aggregation and SGM "
+        "disparity: card and CPU bit-equal; valid "
+        f"{float((disp > 0).float().mean()) * 100:.2f} %")
+    del stages, stages_cpu
+
+    # ranging of the SGM disparity
+    r = on_card("range", lambda: stereo_range(disp, rect, device=dev))
+    r_cpu = on_cpu("range", lambda: stereo_range(disp.cpu(), rect,
+                                                 device=cpu))
+    p = on_card("unproject", lambda: stereo_unproject(disp, rect,
+                                                      device=dev))
+    p_cpu = on_cpu("unproject", lambda: stereo_unproject(disp.cpu(), rect,
+                                                         device=cpu))
+    range_err = (ds_rel(r, r_cpu), ds_rel(p, p_cpu))
+    log(f"[{phase}] stereo_range, stereo_unproject card vs CPU: "
+        f"{range_err[0]:.2e}, {range_err[1]:.2e} relative ({r.dtype}, "
+        f"{p.dtype})")
+    if r.dtype != torch.float64 or p.dtype != torch.float64 or \
+            max(range_err) > DS_RANGE_RTOL:
+        fail(f"[{phase}] ranging: {range_err}")
+
+    # NCC on the same pair
+    ncc = on_card("ncc", lambda: stereo_matching_ncc(
+        rectified[0], rectified[1], disparity_max=DS_DMAX,
+        block_size=DS_NCC_BLOCK, device=dev))
+    ncc_cpu = on_cpu("ncc", lambda: stereo_matching_ncc(
+        rectified[0], rectified[1], disparity_max=DS_DMAX,
+        block_size=DS_NCC_BLOCK, device=cpu))
+    scores = _ncc_scores(*(x.cpu() for x in im), 0, DS_DMAX,
+                         DS_NCC_BLOCK)[0]
+    top2 = torch.topk(scores, 2, dim=0).values
+    clear = (top2[0] - top2[1] > DS_NCC_MARGIN).numpy()
+    del scores, top2
+    differ = np.abs(ncc - ncc_cpu) > DS_NCC_PX
+    log(f"[{phase}] NCC card vs CPU: {int(differ.sum())} pixels differ "
+        f"({int(differ[clear].sum())} of them with a clear best score), "
+        f"{int((ncc != ncc_cpu).sum())} not bit-equal; valid "
+        f"{float((ncc > 0).mean()) * 100:.2f} %")
+    if ncc.dtype != np.float32 or differ[clear].any() or \
+            differ.mean() > DS_NCC_SHARE:
+        fail(f"[{phase}] NCC: card and CPU differ at {differ.sum()} pixels")
+
+    # against the true geometry
+    d_true, r_true, regions, epipolar = ds_truth(torch, models, rect, dev)
+    log(f"[{phase}] truth: disparities {float(d_true.min()):.1f}-"
+        f"{float(d_true.max()):.1f} px, ranges {float(r_true.min()):.3f}-"
+        f"{float(r_true.max()):.3f} m; rows of rect0 and rect1 agree to "
+        f"{epipolar:.2e} px")
+    gates = dict(sgm=ds_truth_gate(phase, "SGM", disp, d_true, regions))
+    sel = (disp > 0) & (regions["plane"] | regions["box"])
+    range_rel = float(((r - r_true).abs() / r_true)[sel].median())
+    log(f"[{phase}] SGM range vs the truth: median relative error "
+        f"{range_rel:.5f} over {int(sel.sum())} px")
+    if not range_rel < DS_RANGE_MEDIAN_REL:
+        fail(f"[{phase}] range: median relative error {range_rel}")
+    ncc_t = torch.as_tensor(ncc, device=dev)
+    for name, region in regions.items():
+        err = (ncc_t - d_true).abs()[region & (ncc_t > 0)]
+        log(f"[{phase}] NCC vs the truth (no gate), {name}: valid "
+            f"{float((ncc_t > 0)[region].float().mean()) * 100:.2f} %, "
+            f"median error {float(err.median()):.4f} px")
+
+    # match_feature: DS_FEATURES features of raw camera 0 in raw camera 1
+    rng = np.random.default_rng(DS_SEED + 2)
+    Wpx, Hpx = (int(v) for v in truth["imagersize"])
+    q0 = np.stack([rng.uniform(DS_FEATURE_MARGIN, Wpx - DS_FEATURE_MARGIN,
+                               DS_FEATURES),
+                   rng.uniform(DS_FEATURE_MARGIN, Hpx - DS_FEATURE_MARGIN,
+                               DS_FEATURES)], -1)
+    from mrcal_tpu_torch import unproject, project
+    v = unproject(q0, *models[0].intrinsics(), device=dev)
+    s, _, _ = ds_hit(torch, torch.zeros(3, dtype=torch.float64, device=dev),
+                     v)
+    q1_true = project(_transform_point_Rt(
+        torch.as_tensor(models[1].Rt_cam_ref(), device=dev),
+        s[:, None] * v), *models[1].intrinsics(), device=dev).cpu().numpy()
+    est = q1_true + rng.uniform(-DS_ESTIMATE_PX, DS_ESTIMATE_PX,
+                                q1_true.shape)
+
+    def matches(d):
+        return [match_feature(raw[0], raw[1], q0[i], q1_estimate=est[i],
+                              device=d) for i in range(DS_FEATURES)]
+    found = on_card("match_feature", lambda: matches(dev))
+    found_cpu = on_cpu("match_feature", lambda: matches(cpu))
+    worst, err = 0.0, []
+    for (a, da), (b, db) in zip(found, found_cpu):
+        if (a is None) != (b is None):
+            fail(f"[{phase}] match_feature: the card and the CPU disagree on "
+                 "a match")
+        worst = max(worst, float(np.abs(da["matchoutput_image"]
+                                        - db["matchoutput_image"]).max()))
+        if a is not None:
+            worst = max(worst, float(np.abs(a - b).max()))
+    err = [float(np.linalg.norm(a - t)) for (a, _), t in zip(found, q1_true)
+           if a is not None]
+    log(f"[{phase}] match_feature: {len(err)} of {DS_FEATURES} found; card "
+        f"vs CPU {worst:.2e} px (scores too); vs the truth median "
+        f"{np.median(err):.4f} px, 90th percentile "
+        f"{np.percentile(err, 90):.4f} px")
+    if not worst <= DS_MATCH_PX:
+        fail(f"[{phase}] match_feature: card and CPU differ by {worst}")
+
+    # mrcal-reproject-image: camera 0 to a pinhole fit to its corners, and
+    # again from a copy of it with a valid-intrinsics region
+    m_region = cameramodel(models[0])
+    m_region.valid_intrinsics_region(np.array(
+        [[0, 0], [Wpx - 1, 0], [Wpx - 1, Hpx - 1], [0, Hpx - 1], [0, 0]],
+        dtype=float))
+    reproj = {}
+    for name, m_from, kw in (("reproject", models[0], {}),
+                             ("reproject_masked", m_region,
+                              dict(mask_valid_intrinsics_region_from=True))):
+        def reproject(d):
+            pin = pinhole_model_for_reprojection(models[0], fit="corners",
+                                                 device=d)
+            mapxy = image_transformation_map(m_from, pin, device=d, **kw)
+            return mapxy, transform_image(raw[0], mapxy, device=d)
+        (mapxy, out) = on_card(name, lambda: reproject(dev))
+        (mapxy_cpu, out_cpu) = on_cpu(name, lambda: reproject(cpu))
+        ulps = float((np.abs(mapxy - mapxy_cpu)
+                      / np.spacing(np.abs(mapxy_cpu))).max())
+        masked = float(np.all(mapxy == -1, axis=-1).mean())
+        log(f"[{phase}] {name}: map card vs CPU {ulps:.1f} ulps, "
+            f"{masked * 100:.2f} % masked")
+        if ulps > DS_MAP_ULPS:
+            fail(f"[{phase}] {name}: the maps differ by {ulps} ulps")
+        reproj[name] = dict(map_ulps=ulps, masked_share=masked,
+                            differ_share=ds_images_gate(phase, name, out,
+                                                        out_cpu))
+
+    # the 2-MP pair, the card only, against its truth
+    im0L, im1L, dL, regionsL = ds_large_pair()
+    im0L, im1L = (torch.as_tensor(x, device=dev) for x in (im0L, im1L))
+    stereo_matching_sgm(im0L, im1L, disparity_max=DS_LARGE_DMAX, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    dispL, card["sgm_2mp"] = _sync_time(torch, lambda: stereo_matching_sgm(
+        im0L, im1L, disparity_max=DS_LARGE_DMAX, device=dev))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    volume_gb = (DS_LARGE_DMAX + 1) * dispL.numel() * 4 / 1e9
+    log(f"[{phase}] 2-MP pair ({DS_LARGE[1]} x {DS_LARGE[0]}, disparity "
+        f"0-{DS_LARGE_DMAX}: a {volume_gb:.2f} GB cost volume): SGM "
+        f"{card['sgm_2mp']:.3f} s, peak memory {peak:.3f} GiB")
+    gates["sgm_2mp"] = ds_truth_gate(
+        phase, "SGM 2-MP", dispL,
+        torch.as_tensor(dL, device=dev, dtype=torch.float32),
+        {k: torch.as_tensor(v, device=dev) for k, v in regionsL.items()})
+
+    launches = dict(bc.launches)
+    if any(launches.values()):
+        fail(f"[{phase}] the batched-Cholesky kernels launched: {launches}")
+    for k in sorted(card):
+        log(f"[{phase}] wall {k}: card {card[k] * 1e3:.3f} ms"
+            + (f", CPU {host[k] * 1e3:.3f} ms" if k in host else ""))
+    summary = dict(rectified=[Naz, Nel], dmax=DS_DMAX, card_s=card,
+                   cpu_s=host, remap_differ_share=remap_share,
+                   range_rel_err=range_err, range_median_rel=range_rel,
+                   ncc_differ=int(differ.sum()), match_worst_px=worst,
+                   match_truth_median_px=float(np.median(err)),
+                   reprojection=reproj, truth=gates, peak_2mp_gib=peak,
+                   batched_cholesky_launches=launches,
+                   wall_phase_s=time.perf_counter() - t_phase)
+    log(f"[{phase}] phase {summary['wall_phase_s']:.1f} s")
+    pairs = dict(rectified=[x.clone() for x in im], large=(im0L, im1L))
+    return summary, pairs
+
+
+def phase_dense_stereo_profile(torch, summary, pairs):
+    """One SGM call at each size under torch.profiler: device kernels
+    launched, the device's busy share of the unprofiled call's wall, and
+    the top device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mrcal_tpu_torch import stereo_matching_sgm
+    out = {}
+    for name, (im0, im1), dmax, wall in (
+            ("rectified", pairs["rectified"], DS_DMAX,
+             summary["card_s"]["sgm"]),
+            ("2mp", pairs["large"], DS_LARGE_DMAX,
+             summary["card_s"]["sgm_2mp"])):
+        torch.cuda.synchronize()
+        # device activity only: the same kernels and device time, and half
+        # the host's post-processing of the 26k-66k launches (PERF.md)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            stereo_matching_sgm(im0, im1, disparity_max=dmax)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        n = sum(e.count for e in kernels)
+        log(f"[profile] dense_stereo SGM {name} ({tuple(im0.shape)}, "
+            f"disparity 0-{dmax}): {n} device kernels, {busy_ms:.2f} ms "
+            f"device busy = {busy_ms / (wall * 1e3) * 100:.1f} % of the "
+            f"unprofiled call's {wall * 1e3:.1f} ms")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+            log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
+                f"{e.count:6d}x  {e.key[:100]}")
+        out[name] = dict(kernels=n, device_busy_ms=busy_ms,
+                         device_busy_share=busy_ms / (wall * 1e3))
+    return out
+
+
 def phase_profile(torch, phase, oi, ms_per_iteration):
     """Where the time of the f64 solve goes: its first PROFILE_ITERATIONS
     iterations once more, under torch.profiler; device time by kernel,
@@ -2769,6 +3364,8 @@ def main():
     stamp("stereo_opencv8_2cam")
     calib = phase_calibrate(torch)
     stamp("calibrate_from_images")
+    dense, dense_pairs = phase_dense_stereo(torch)
+    stamp("dense_stereo")
     # the kernels at the front end's shapes, against their plain versions
     calib_shapes = sorted({tuple(sh) for st in ("stage1", "stage2")
                            for v in calib[st]["shapes"].values()
@@ -2797,6 +3394,9 @@ def main():
         summary["profile"], _ = phase_profile(
             torch, phase, units, summary["ms_per_lockstep_iteration"])
         stamp(f"{phase} profile")
+    dense["profile"] = phase_dense_stereo_profile(torch, dense, dense_pairs)
+    del dense_pairs
+    stamp("dense_stereo profile")
     for e in entries:
         e["launches"] = main_path["f64"]["launches"][e["name"]]
         e["launches_by_path"] = dict(
@@ -2829,6 +3429,7 @@ def main():
     log(f"[triangulate] summary {json.dumps(triangulate)}")
     log(f"[uncertainty] summary {json.dumps(uncertainty)}")
     log(f"[calibrate_from_images] summary {json.dumps(calib)}")
+    log(f"[dense_stereo] summary {json.dumps(dense)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

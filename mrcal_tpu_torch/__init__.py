@@ -12,14 +12,19 @@ LM loop, ``optimize()`` (with ``check_gradient``), batched solves
 ``CHOLMOD_factorization``, the uncertainty of a calibration
 (``projection_uncertainty``, ``projection_diff`` and the rest of
 ``model_analysis``), ``triangulate`` with the uncertainty of its points,
-the synthetic scenes of ``synthetic_data``, the helpers of ``utils``, and
-the calibration front end: image files (``image``), chessboard detection
-(``detector``) and the seed of a calibration (``calibration``).  Every
-lens model of the JAX package projects: the parametric ones, CAHVOR,
-CAHVORE and the splined one.
+the synthetic scenes of ``synthetic_data``, the helpers of ``utils``, the
+calibration front end: image files (``image``), chessboard detection
+(``detector``) and the seed of a calibration (``calibration``), and dense
+stereo: image reprojection between lens models (``image_transforms``),
+rectification, ranging, feature and block matching (``stereo``) and
+census + semi-global matching (``stereo_sgm``).  Every lens model of the
+JAX package projects: the parametric ones, CAHVOR, CAHVORE and the splined
+one.
 
 Entry points run on the CUDA card unless the caller passes
-``device="cpu"``.  Everything is float64 unless a caller asks for float32.
+``device="cpu"``.  Everything is float64 unless a caller asks for float32,
+or the JAX package works in float32 (the rectification maps, the census,
+SGM and NCC matchers).
 """
 
 from . import _config  # noqa: F401  — TF32 off before any product runs
@@ -40,6 +45,12 @@ from .detector import (  # noqa: F401
 )
 from .factorization import CHOLMOD_factorization  # noqa: F401
 from .image import apply_color_map, load_image, save_image  # noqa: F401
+from .image_transforms import (  # noqa: F401
+    image_transformation_map,
+    pinhole_model_for_reprojection,
+    scale_focal__best_pinhole_fit,
+    transform_image,
+)
 from .lensmodels import (  # noqa: F401
     knots_for_splined_models,
     lensmodel_metadata_and_config,
@@ -82,6 +93,16 @@ from .projections import (  # noqa: F401
     project_stereographic, unproject, unproject_latlon, unproject_lonlat,
     unproject_pinhole, unproject_stereographic,
 )
+from .stereo import (  # noqa: F401
+    match_feature,
+    rectification_maps,
+    rectified_resolution,
+    rectified_system,
+    stereo_matching_ncc,
+    stereo_range,
+    stereo_unproject,
+)
+from .stereo_sgm import stereo_matching_sgm  # noqa: F401
 from .synthetic_data import (  # noqa: F401
     make_perfect_observations,
     make_tracks,

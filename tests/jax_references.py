@@ -577,3 +577,199 @@ def slice_references():
     model = mrcal_tpu.cameramodel(optimization_inputs=oi, icam_intrinsics=0)
     out["region"] = np.asarray(jc._compute_valid_intrinsics_region(model))
     return out
+
+
+# ----------------------------------------------------------------------------
+# tests/test_torch_image_transforms.py, tests/test_torch_stereo.py and
+# tests/test_torch_stereo_sgm.py
+# ----------------------------------------------------------------------------
+
+# two OPENCV8 cameras of 160 x 120, camera 1 0.2 m to the right of camera 0
+# and slightly turned; cam1_region is camera 1 with a valid-intrinsics
+# region; pin0 and pin1 are the two as PINHOLE cameras; skew1 is a PINHOLE
+# camera 0.2 m right of and 0.2 m ahead of camera 0 (the baseline 45
+# degrees off the optical axis)
+_OPENCV8 = [150.0, 148.0, 80.5, 59.0, -0.05, 0.01, 1e-3, -5e-4, 2e-3,
+            1e-3, -2e-3, 5e-4]
+DENSE_MODELS = {
+    "cam0": dict(intrinsics=("LENSMODEL_OPENCV8", _OPENCV8),
+                 imagersize=(160, 120), rt_cam_ref=np.zeros(6)),
+    "cam1": dict(intrinsics=("LENSMODEL_OPENCV8",
+                             [153.0, 151.0, 78.0, 61.5] + _OPENCV8[4:]),
+                 imagersize=(160, 120),
+                 rt_cam_ref=np.array([0.01, -0.02, 0.005, -0.2, 0.003,
+                                      0.01])),
+    "skew1": dict(intrinsics=("LENSMODEL_PINHOLE",
+                              [150.0, 150.0, 79.5, 59.5]),
+                  imagersize=(160, 120),
+                  rt_cam_ref=np.array([0., 0., 0., -0.2, 0., -0.2])),
+}
+DENSE_MODELS["pin0"] = dict(DENSE_MODELS["cam0"], intrinsics=(
+    "LENSMODEL_PINHOLE", _OPENCV8[:4]))
+DENSE_MODELS["pin1"] = dict(DENSE_MODELS["cam1"], intrinsics=(
+    "LENSMODEL_PINHOLE", DENSE_MODELS["cam1"]["intrinsics"][1][:4]))
+DENSE_MODELS["cam1_region"] = dict(
+    DENSE_MODELS["cam1"],
+    valid_intrinsics_region=np.array([[12.3, 9.7], [147.1, 14.2],
+                                      [151.6, 108.9], [20.4, 104.1],
+                                      [12.3, 9.7]]))
+
+
+def dense_texture(shape, seed, blur=1.0, scale=4.0):
+    """Band-limited noise: tests/test_stereo_sgm.py's _texture."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.default_rng(seed)
+    return gaussian_filter(
+        rng.uniform(0, 255, shape).astype(np.float32), blur) * scale
+
+
+def remap_coordinates(shape, seed):
+    """A float32 (H, W, 2) map of source (x, y) into a 160 x 120 image: a
+    smooth warp reaching past each edge, and a few masked (-1, -1)
+    entries."""
+    H, W = shape
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:H, 0:W].astype(np.float64)
+    mx = x * 170.0 / W - 5 + 3 * np.sin(y / 7.0) + rng.uniform(-.5, .5, x.shape)
+    my = y * 130.0 / H - 5 + 3 * np.cos(x / 9.0) + rng.uniform(-.5, .5, x.shape)
+    m = np.stack([mx, my], axis=-1).astype(np.float32)
+    m[rng.random((H, W)) < 0.02] = -1.0
+    return m
+
+
+def half_level_case():
+    """A uint8 image whose neighbours differ by odd amounts, sampled half
+    way between columns: every sample lies on .5 of a level."""
+    rng = np.random.default_rng(5)
+    im = (rng.integers(0, 127, (20, 30)) * 2).astype(np.uint8)
+    im[:, 1::2] += 1
+    y, x = np.mgrid[0:20, 0:29].astype(np.float32)
+    return im, np.stack([x + 0.5, y], axis=-1)
+
+
+def dense_resolve(pkg, arg, kw):
+    """A case argument in package pkg: ("model", key), ("pair", k0, k1),
+    ("pinhole", key, fit) and ("rect", k0, k1, rectified_system kwargs)
+    become that package's objects (kw: the port's device=)."""
+    if not (isinstance(arg, tuple) and arg and isinstance(arg[0], str)):
+        return arg
+    what = arg[0]
+    if what == "model":
+        return pkg.cameramodel(**DENSE_MODELS[arg[1]])
+    if what == "pair":
+        return tuple(pkg.cameramodel(**DENSE_MODELS[k]) for k in arg[1:])
+    if what == "pinhole":
+        return pkg.pinhole_model_for_reprojection(
+            pkg.cameramodel(**DENSE_MODELS[arg[1]]), arg[2], **kw)
+    if what == "rect":
+        return pkg.rectified_system(
+            dense_resolve(pkg, ("pair",) + arg[1:3], kw), **arg[3], **kw)
+    return arg
+
+
+def dense_numpy(x):
+    """A result as numpy: arrays and tensors, cameramodels as dicts, the
+    rest as it is, through tuples, lists and dicts."""
+    if hasattr(x, "intrinsics") and hasattr(x, "imagersize"):
+        return dict(lensmodel=x.intrinsics()[0],
+                    intrinsics=np.asarray(x.intrinsics()[1]),
+                    imagersize=np.asarray(x.imagersize()),
+                    rt_cam_ref=np.asarray(x.extrinsics_rt_fromref()))
+    if isinstance(x, (tuple, list)):
+        return [dense_numpy(v) for v in x]
+    if isinstance(x, dict):
+        return {k: dense_numpy(v) for k, v in x.items()}
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    if hasattr(x, "__array__") and not isinstance(x, np.ndarray):
+        return np.asarray(x)
+    return x
+
+
+def dense_call(pkg, case, kw):
+    """Case (function name, args, kwargs) called in package pkg: its
+    result as numpy, or ("raises", the exception's message)."""
+    fn, args, kwargs = case
+    args = [dense_resolve(pkg, a, kw) for a in args]
+    try:
+        return dense_numpy(getattr(pkg, fn)(*args, **kwargs, **kw))
+    except Exception as e:      # the message is what the test compares
+        return ("raises", str(e))
+
+
+def dense_references(cases):
+    """The JAX package on each case of `cases` (name -> (function name,
+    args, kwargs)): name -> result (dense_call)."""
+    import mrcal_tpu
+    return {name: dense_call(mrcal_tpu, case, {})
+            for name, case in cases.items()}
+
+
+# the SGM cases: (images, disparity_min, disparity_max,
+# lr_consistency_threshold)
+SGM_SHAPE = (64, 96)
+
+
+def sgm_pair(kind):
+    """A rectified pair of SGM_SHAPE: "plane" a textured plane at
+    disparity 9; "box" a plane at 6 with a box at 17 in front of it;
+    "colour" the box scene as 3-channel uint8 images; "flat" the plane
+    with large flat patches (ties in every cost)."""
+    H, W = SGM_SHAPE
+    if kind == "plane":
+        tex = dense_texture((H, W + 48), 11)
+        return tex[:, 24:24 + W], tex[:, 24 + 9:24 + 9 + W]
+    if kind in ("box", "colour"):
+        tex_bg = dense_texture((H, W + 48), 12)
+        tex_fg = dense_texture((H, W + 48), 13)
+        y0, y1, x0, x1 = 16, 48, 40, 76
+        im0 = tex_bg[:, 24:24 + W].copy()
+        im0[y0:y1, x0:x1] = tex_fg[:, 24:24 + W][y0:y1, x0:x1]
+        im1 = tex_bg[:, 24 + 6:24 + 6 + W].copy()
+        fg = tex_fg[:, 24 + 17:24 + 17 + W]
+        im1[y0:y1, x0 - 17:x1 - 17] = fg[y0:y1, x0 - 17:x1 - 17]
+        if kind == "box":
+            return im0, im1
+        shade = np.array([0.9, 1.0, 0.8], np.float32)
+        return tuple(np.clip(im[..., None] * shade / 4, 0, 255)
+                     .astype(np.uint8) for im in (im0, im1))
+    tex = dense_texture((H, W + 48), 14)
+    tex[8:30, 10:60] = 100.0
+    tex[40:60, 50:130] = 200.0
+    return tex[:, 24:24 + W], tex[:, 24 + 9:24 + 9 + W]
+
+
+SGM_CASES = {
+    "plane": ("plane", 0, 31, 1),
+    "box": ("box", 0, 31, 1),
+    "colour": ("colour", 0, 31, 1),
+    "flat": ("flat", 0, 31, 1),
+    "dmin": ("box", 4, 35, 1),
+    "lr3": ("box", 0, 31, 3),
+}
+
+
+def sgm_references(names):
+    """The JAX package's census, cost volume, aggregation and disparity on
+    the SGM cases `names`: name -> dict of numpy arrays (census and cost
+    on the grey images; aggregation at P1 6, P2 96)."""
+    import jax.numpy as jnp
+    import mrcal_tpu.stereo_sgm as js
+    out = {}
+    for name in names:
+        kind, dmin, dmax, thr = SGM_CASES[name]
+        im0, im1 = sgm_pair(kind)
+        r = dict(disparity=np.asarray(js.stereo_matching_sgm(
+            im0, im1, disparity_min=dmin, disparity_max=dmax,
+            lr_consistency_threshold=thr)))
+        if im0.ndim == 2 and thr == 1:
+            c0 = js.census_transform(im0)
+            c1 = js.census_transform(im1)
+            cost = js.census_cost_volume(c0, c1, dmin, dmax)
+            r.update(census0=np.asarray(c0), census1=np.asarray(c1),
+                     cost=np.asarray(cost),
+                     agg=np.asarray(js._sgm_aggregate(
+                         cost, jnp.float32(6.0), jnp.float32(96.0), dmin,
+                         dmax)))
+        out[name] = r
+    return out

@@ -1,11 +1,13 @@
 """The port stands alone: importing mrcal_tpu_torch (the splined path,
 the multi-device package, the uncertainty modules, the .cahvor format,
-utils, synthetic_data and the calibration front end (image, detector,
-calibration) included, and building the splined bench problem) loads
-neither jax nor mrcal_tpu, and no module of the port (nor chip_smoke.py)
-imports either.  The public entry points of the projection, utils,
-uncertainty, image, detector and calibration modules run on the card
-unless told otherwise."""
+utils, synthetic_data, the calibration front end (image, detector,
+calibration) and dense stereo (image_transforms, stereo, stereo_sgm)
+included, and building the splined bench problem) loads neither jax nor
+mrcal_tpu, and no module of the port (nor chip_smoke.py) imports either.
+The public entry points of the projection, utils, uncertainty, image,
+detector, calibration and dense-stereo modules run on the card unless
+told otherwise, and the top level exports every dense-stereo name of the
+JAX package with its signature, plus device."""
 
 import ast
 import os
@@ -42,7 +44,8 @@ def test_import_loads_no_jax():
             "mrcal_tpu_torch.model_analysis, mrcal_tpu_torch.utils, "
             "mrcal_tpu_torch.cahvor, mrcal_tpu_torch.synthetic_data, "
             "mrcal_tpu_torch.image, mrcal_tpu_torch.detector, "
-            "mrcal_tpu_torch.calibration; "
+            "mrcal_tpu_torch.calibration, mrcal_tpu_torch.image_transforms, "
+            "mrcal_tpu_torch.stereo, mrcal_tpu_torch.stereo_sgm; "
             "from mrcal_tpu_torch.lensmodels import splined_deltau; "
             "from mrcal_tpu_torch.optimize.solver import "
             "build_normal_equations_splined, lm_solve; "
@@ -100,7 +103,41 @@ def _entry_point_calls():
     Rt_cf = m.estimate_monocular_calobject_poses_Rt_tocam(
         idx_fc, oi["observations_board"], spacing, [(lens, intr)],
         device="cpu")
+    # a rectified pair of PINHOLE cameras 0.2 m apart, 32 x 24
+    pin = [m.cameramodel(intrinsics=("LENSMODEL_PINHOLE",
+                                     [30.0, 30.0, 15.5, 11.5]),
+                         imagersize=(32, 24), rt_cam_ref=rt)
+           for rt in (np.zeros(6), np.array([0., 0., 0., -0.2, 0., 0.]))]
+    rect = m.rectified_system(pin, az_fov_deg=40, el_fov_deg=30,
+                              device="cpu")
+    stereo_images = [np.roll(board_image[:24, :32], s, axis=1)
+                     for s in (0, -3)]
     return {
+        "scale_focal__best_pinhole_fit": (m.scale_focal__best_pinhole_fit,
+                                          (model, "corners")),
+        "pinhole_model_for_reprojection": (
+            m.pinhole_model_for_reprojection, (model, "corners")),
+        "image_transformation_map": (m.image_transformation_map,
+                                     (pin[1], pin[0])),
+        "transform_image": (m.transform_image,
+                            (board_image, np.zeros((5, 6, 2), np.float32))),
+        "rectified_resolution": (
+            m.rectified_resolution, (pin[0],),
+            dict(az_fov_deg=40, el_fov_deg=30, az0_deg=0, el0_deg=0,
+                 R_cam0_rect0=np.eye(3))),
+        "rectified_system": (m.rectified_system, (pin,),
+                             dict(az_fov_deg=40, el_fov_deg=30)),
+        "rectification_maps": (m.rectification_maps, (pin, rect)),
+        "stereo_range": (m.stereo_range, (np.full((4, 5), 2.0), rect)),
+        "stereo_unproject": (m.stereo_unproject,
+                             (np.full((4, 5), 2.0), rect)),
+        "match_feature": (m.match_feature,
+                          (board_image, board_image, (40.0, 40.0)),
+                          dict(search_radius1=3, template_size1=5)),
+        "stereo_matching_ncc": (m.stereo_matching_ncc, stereo_images,
+                                dict(disparity_max=6)),
+        "stereo_matching_sgm": (m.stereo_matching_sgm, stereo_images,
+                                dict(disparity_max=6)),
         "project": (m.project, (v, lens, intr)),
         "unproject": (m.unproject, (q, lens, intr)),
         "project_pinhole": (m.project_pinhole, (v,)),
@@ -199,7 +236,13 @@ ENTRY_POINTS = ["project", "unproject", "project_pinhole",
                 "synthesize_board_observations", "apply_color_map",
                 "chess_response", "find_chessboard_corners",
                 "estimate_monocular_calobject_poses_Rt_tocam",
-                "estimate_joint_frame_poses", "seed_stereographic"]
+                "estimate_joint_frame_poses", "seed_stereographic",
+                "scale_focal__best_pinhole_fit",
+                "pinhole_model_for_reprojection", "image_transformation_map",
+                "transform_image", "rectified_resolution", "rectified_system",
+                "rectification_maps", "stereo_range", "stereo_unproject",
+                "match_feature", "stereo_matching_ncc",
+                "stereo_matching_sgm"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -208,11 +251,45 @@ def test_entry_points_run_on_the_card_unless_told(entry_point_calls,
     """device="cpu" runs on the CPU (tensors there); no device means the
     CUDA card, and without one each entry point raises rather than fall
     back to the CPU."""
-    fn, args = entry_point_calls[name]
-    out = fn(*args, device="cpu")
+    fn, args, *kw = entry_point_calls[name]
+    kw = kw[0] if kw else {}
+    out = fn(*args, device="cpu", **kw)
     for t in (out if isinstance(out, tuple) else (out,)):
         if torch.is_tensor(t):
             assert t.device.type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        fn(*args)
+        fn(*args, **kw)
+
+
+def _jax_exports(*modules):
+    """The names mrcal_tpu/__init__.py imports from its `modules`, read
+    from its source."""
+    with open(os.path.join(ROOT, "mrcal_tpu", "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    return sorted(a.name for node in ast.walk(tree)
+                  if isinstance(node, ast.ImportFrom) and node.level == 1
+                  and node.module in modules for a in node.names)
+
+
+DENSE_STEREO = _jax_exports("stereo_sgm", "stereo", "image_transforms")
+
+
+def test_dense_stereo_exports_cover_the_jax_package():
+    assert len(DENSE_STEREO) == 12
+
+
+@pytest.mark.parametrize("name", DENSE_STEREO)
+def test_dense_stereo_export_matches_jax_signature(name):
+    """Every dense-stereo name of the JAX package's top level is the
+    port's too, with the JAX signature plus a keyword-only device."""
+    import inspect
+    import mrcal_tpu
+    import mrcal_tpu_torch
+    want = inspect.signature(getattr(mrcal_tpu, name)).parameters
+    got = dict(inspect.signature(getattr(mrcal_tpu_torch, name)).parameters)
+    device = got.pop("device")
+    assert device.kind is inspect.Parameter.KEYWORD_ONLY
+    assert device.default is None
+    assert [(p.name, p.kind, p.default) for p in got.values()] == \
+        [(p.name, p.kind, p.default) for p in want.values()]
