@@ -151,6 +151,32 @@ nonzero:
    by SGM with disparity 0-255 on the card alone: its wall, its peak
    memory and the same truth gates.  No batched-Cholesky kernel may
    launch.  Each stage's warm wall on the card beside the CPU's.
+   tools: the port's command-line tools (mrcal_tpu_torch.tools), each
+   on the card as a user runs it (main(argv), no device) and held to the
+   same call with device="cpu": mrcal-calibrate-cameras on
+   calibrate_from_images' detections (a corners.vnl in a temporary
+   directory, named so that the globs *-cam0.png and *-cam1.png split
+   the cameras; LENSMODEL_OPENCV8, focal 700, 800 x 600, the 14 x 14
+   board, --valid-intrinsics-region) into two .cameramodel files: the
+   same Noutliers, the rms within 1e-8 px, each model's projection of a
+   30 x 22 grid within 1e-6 px, camera 1's extrinsics within 1e-9; fx,
+   fy, cx, cy within 1 px and camera 1's t within 2 mm of the truth; one
+   fused launch and one back-substitution per iteration in every solve
+   of the tool.  On the written models: mrcal-reoptimize (and
+   profiling.timings() after its solve), mrcal-convert-lensmodel to
+   LENSMODEL_OPENCV4 by re-solve and by --sampled (no kernel launch),
+   mrcal-report-fov, -reproject-points and
+   -is-within-valid-intrinsics-region, and mrcal-triangulate of a pixel
+   pair with both noises (its report's numbers within 1e-9 relative).
+   Then mrcal-stereo's array function on dense_stereo's rendered pair
+   (SGM, disparities 0-127, the range image and the point cloud): the
+   rectified images as dense_stereo gates them, the card's disparity
+   bit-equal to the CPU's on the card's rectified pair, ranges 1e-12,
+   the SGM gates against the truth; and mrcal-reproject-image's to
+   camera 0's corner-fit pinhole (the map within 2 float32 ulps, the
+   images as dense_stereo gates them).  Each tool's wall on the card and
+   on the CPU; the tools' kernel shapes join the kernel checks and
+   times.
 6. mesh: the multi-device path (mrcal_tpu_torch.parallel), the
    observations sharded over a torch.distributed group.
    nccl1: a one-rank NCCL group (a file store in a temporary directory,
@@ -209,7 +235,7 @@ nonzero:
    events, and device time per launch from torch.profiler) beside its
    plain version, the PyTorch library call and its bound, and beside the
    launch floor (a one-element torch.add).
-9. profile: the first 16 iterations of one more f64 solve of each
+9. profile: the first 8 iterations of one more f64 solve of each
    configuration, and of the fleet and the splined fleet, under
    torch.profiler (device time by kernel, launches per iteration,
    busy share); one SGM call on dense_stereo's rectified pair and one on
@@ -394,10 +420,11 @@ DIFF_DIFFLEN_TOL = 1e-8
 DIFF_RT10_TOL = 1e-9
 UNC_METHODS = ("mean-pcam", "cross-reprojection-rrp-Jfp",
                "cross-reprojection-ccp")
-# the profiled window: each configuration's first 16 iterations (every
+# the profiled window: each configuration's first 8 iterations (every
 # iteration does the same work; whole solves under the profiler took 448 s
-# of the script's 698 on the card, PERF.md)
-PROFILE_ITERATIONS = 16
+# of the script's 698 on the card, and 16 iterations of each 235 s of 796,
+# most of it the profiler's post-processing on the host, PERF.md)
+PROFILE_ITERATIONS = 8
 
 
 def fail(msg):
@@ -2406,7 +2433,9 @@ def phase_calibrate(torch):
     back-substitution per iteration; cameramodels and camera 0's
     valid-intrinsics region.  Gated: detection rate, the corners' rms
     against the truth, the stage-2 rms against the same objective at the
-    true geometry, the intrinsics' core and camera 1's translation."""
+    true geometry, the intrinsics' core and camera 1's translation.
+    Returns its summary, and dict(vnl: the corners.vnl text, truth: the
+    true geometry) for [tools]."""
     import io
     from mrcal_tpu_torch import (cameramodel, compute_chessboard_corners,
                                  estimate_monocular_calobject_poses_Rt_tocam,
@@ -2665,7 +2694,8 @@ def phase_calibrate(torch):
                 pnp_passes=npass, pnp_retried=retry, seed_err=seed_err,
                 rms_truth=rms_true, core_err_px=core_err,
                 t1_err_m=t1_err, region_points=len(region),
-                region_branch=branch, walls=walls, **stages)
+                region_branch=branch, walls=walls, **stages), \
+        dict(vnl=text, truth=truth)
 
 
 # [dense_stereo]: stereo_opencv8_2cam's true pair (two OPENCV8 cameras of
@@ -3198,7 +3228,8 @@ def phase_dense_stereo(torch):
                    batched_cholesky_launches=launches,
                    wall_phase_s=time.perf_counter() - t_phase)
     log(f"[{phase}] phase {summary['wall_phase_s']:.1f} s")
-    pairs = dict(rectified=[x.clone() for x in im], large=(im0L, im1L))
+    pairs = dict(rectified=[x.clone() for x in im], large=(im0L, im1L),
+                 raw=raw, models=models)
     return summary, pairs
 
 
@@ -3235,6 +3266,415 @@ def phase_dense_stereo_profile(torch, summary, pairs):
         out[name] = dict(kernels=n, device_busy_ms=busy_ms,
                          device_busy_share=busy_ms / (wall * 1e3))
     return out
+
+
+# [tools]: the port's command-line tools (mrcal_tpu_torch.tools) on
+# stereo_opencv8_2cam: mrcal-calibrate-cameras on [calibrate_from_images]'s
+# detections, the tools of models on the models it writes, and the array
+# functions of mrcal-stereo and mrcal-reproject-image on [dense_stereo]'s
+# rendered pair; each on the card, as a user runs it (main(argv) with no
+# device), and on the CPU (device="cpu")
+TOOLS_DEVICE = None
+TOOLS_RMS_TOL = 1e-8                    # px, card vs CPU
+TOOLS_GRID = (30, 22)
+TOOLS_GRID_PX_TOL = 1e-6                # each model's projection of the grid
+TOOLS_RT_TOL = 1e-9                     # camera 1's extrinsics
+TOOLS_REPORT_RTOL = 1e-9                # report numbers, relative
+TOOLS_PX_TOL = 1e-9                     # reprojected pixels
+TOOLS_CONVERT_TO = "LENSMODEL_OPENCV4"
+TOOLS_FEATURE = (420.0, 310.0, 3.0)     # camera 0's pixel, its range (m)
+TOOLS_POINTS = "# x y\n0 0\n100.5 80.25\n420 310\n799 599\n650.25 120.5\n"
+
+
+class SolveLog:
+    """Records each optimize() call made through mrcal_tpu_torch.optimize
+    (the name the tools call): its stats, the kernels' launches in it and
+    the (B, n, K) shapes of the Schur step's two wrappers; `total` holds
+    every launch of the block, the seed's PnP included."""
+
+    def __enter__(self):
+        import mrcal_tpu_torch
+        from mrcal_tpu_torch.ops import batched_cholesky as bc
+        self.pkg, self.real, self.bc = mrcal_tpu_torch, \
+            mrcal_tpu_torch.optimize, bc
+        self.calls = []
+        bc.reset_launches()
+
+        def optimize(*args, **kw):
+            before = dict(bc.launches)
+            with KernelShapes() as ks:
+                stats = self.real(*args, **kw)
+            self.calls.append(dict(
+                stats=stats,
+                launches={k: bc.launches[k] - before[k] for k in LAUNCHED},
+                shapes={k: sorted(set(v)) for k, v in ks.shapes.items()}))
+            return stats
+        mrcal_tpu_torch.optimize = optimize
+        return self
+
+    def __exit__(self, *exc):
+        self.pkg.optimize = self.real
+        self.total = dict(self.bc.launches)
+
+
+def run_tool(torch, module, argv, device, stdin=""):
+    """module.main(argv, device=device), its standard streams captured:
+    (its result, stdout, stderr, wall in s).  SystemExit fails the
+    phase."""
+    import contextlib
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    saved = sys.stdin
+    sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            result, wall = _sync_time(torch, lambda: module.main(
+                list(argv), device=device))
+    except SystemExit as e:
+        fail(f"[tools] {module.__name__} {argv} exited {e.code}: "
+             f"{out.getvalue()[-2000:]} {err.getvalue()[-2000:]}")
+    finally:
+        sys.stdin = saved
+    return result, out.getvalue(), err.getvalue(), wall
+
+
+def tools_grid_px(m, m_ref):
+    """The largest distance (px) between two models' projections of the
+    TOOLS_GRID grid of m_ref's unprojections (unit vectors), on the
+    CPU."""
+    from mrcal_tpu_torch import project, sample_imager, unproject
+    W, H = m_ref.imagersize()
+    q = sample_imager(*TOOLS_GRID, W, H, device="cpu")
+    v = unproject(q, *m_ref.intrinsics(), normalize=True, device="cpu")
+    return float((project(v, *m.intrinsics(), device="cpu")
+                  - project(v, *m_ref.intrinsics(), device="cpu"))
+                 .abs().max())
+
+
+def tools_check_solves(phase, solves, what, frames=True):
+    """One fused launch and one back-substitution per iteration in every
+    solve (none at all in solves without frames); returns the solves'
+    (iterations, launches, shapes)."""
+    out = []
+    for i, c in enumerate(solves.calls):
+        niter = c["stats"]["niterations"]
+        check_launches_per_iteration(f"{phase} {what} solve {i}",
+                                     c["launches"], niter if frames else 0)
+        out.append(dict(niterations=niter, launches=c["launches"],
+                        shapes={k: [list(x) for x in v]
+                                for k, v in c["shapes"].items()}))
+    return out
+
+
+def tools_report_err(a, b):
+    """The largest relative difference of two triangulate reports, each
+    number group by its own magnitude."""
+    assert set(a) == set(b), (sorted(a), sorted(b))
+    worst = 0.0
+    for k in a:
+        x, y = (np.asarray(v, dtype=np.float64) for v in (a[k], b[k]))
+        worst = max(worst, float(np.abs(x - y).max()
+                                 / max(np.abs(y).max(), 1e-300)))
+    return worst
+
+
+def phase_tools(torch, cal, dense):
+    """[tools]: the port's tools at stereo_opencv8_2cam's full width, on
+    the card against the same calls on the CPU.  cal:
+    phase_calibrate()'s dict(vnl, truth); dense: phase_dense_stereo()'s
+    pairs (the raw rendered pair and the true models).  Returns the
+    summary and the (B, n, K) shapes of the tools' kernel launches."""
+    import copy
+    from mrcal_tpu_torch import (cameramodel, compose_Rt, profiling, project,
+                                 transform_point_Rt, unproject)
+    from mrcal_tpu_torch._config import resolve_device
+    from mrcal_tpu_torch.tools import (calibrate_cameras, convert_lensmodel,
+                                       is_within_valid_intrinsics_region,
+                                       reoptimize, reproject_image,
+                                       reproject_points, report_fov, stereo,
+                                       triangulate)
+    phase = "tools"
+    t_phase = time.perf_counter()
+    dev = resolve_device(TOOLS_DEVICE)
+    cpu = torch.device("cpu")
+    card, host, launches, summary = {}, {}, {}, {}
+    shapes = {"cholesky_factor_solve": set(), "cholesky_solve_factored": set()}
+    truth = cal["truth"]
+    Wpx, Hpx = (int(v) for v in truth["imagersize"])
+
+    def record_shapes(solves):
+        for c in solves.calls:
+            for k, v in c["shapes"].items():
+                shapes[k].update(v)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools.")
+    try:
+        vnl = os.path.join(tmp, "corners.vnl")
+        with open(vnl, "w") as f:
+            f.write(cal["vnl"])
+        out = {d: os.path.join(tmp, d) for d in ("card", "cpu")}
+        for d in out.values():
+            os.mkdir(d)
+
+        # mrcal-calibrate-cameras
+        def calibrate_argv(outdir):
+            return ["--corners-cache", vnl, "--lensmodel",
+                    truth["lensmodel"], "--focal", f"{CAL_FOCAL:g}",
+                    "--imagersize", str(Wpx), str(Hpx), "--object-spacing",
+                    repr(float(truth["spacing"])), "--object-width-n", "14",
+                    "--valid-intrinsics-region", "--outdir", outdir,
+                    "*-cam0.png", "*-cam1.png"]
+        with SolveLog() as solves:
+            res, text, _, card["calibrate_cameras"] = run_tool(
+                torch, calibrate_cameras, calibrate_argv(out["card"]),
+                TOOLS_DEVICE)
+        for line in text.splitlines():
+            log(f"[{phase}] calibrate_cameras | {line}")
+        launches["tools_calibrate_cameras"] = solves.total
+        record_shapes(solves)
+        pnp = solves.total["cholesky_factor_solve"] - sum(
+            c["launches"]["cholesky_factor_solve"] for c in solves.calls)
+        if pnp > 0:
+            shapes["cholesky_factor_solve"].add(
+                (len(res["optimization_inputs"]["observations_board"]), 6,
+                 1))
+        summary["calibrate_cameras_solves"] = tools_check_solves(
+            phase, solves, "calibrate_cameras")
+        final = summary["calibrate_cameras_solves"][-1]
+        niters = [c["niterations"]
+                  for c in summary["calibrate_cameras_solves"]]
+        log(f"[{phase}] calibrate_cameras on the card: "
+            f"{len(solves.calls)} solves (iterations {niters}), the final "
+            f"one {final['niterations']} iterations with "
+            f"{final['launches']} launches at {final['shapes']}; "
+            f"{pnp} launches in the seed's PnP; every solve one fused "
+            "launch and one back-substitution per iteration")
+        res_cpu, _, _, host["calibrate_cameras"] = run_tool(
+            torch, calibrate_cameras, calibrate_argv(out["cpu"]), "cpu")
+        models = [cameramodel(os.path.join(out["card"],
+                                           f"camera-{i}.cameramodel"))
+                  for i in (0, 1)]
+        models_cpu = [cameramodel(os.path.join(out["cpu"],
+                                               f"camera-{i}.cameramodel"))
+                      for i in (0, 1)]
+        grid = max(tools_grid_px(m, mc) for m, mc in zip(models, models_cpu))
+        rt_err = float(np.abs(models[1].extrinsics_rt_fromref()
+                              - models_cpu[1].extrinsics_rt_fromref()).max())
+        rms = [r["stats"]["rms_reproj_error__pixels"] for r in (res, res_cpu)]
+        outliers = [int(r["stats"]["Noutliers_board"]) for r in (res, res_cpu)]
+        rms_err = abs(rms[0] - rms[1])
+        core_err = max(float(np.abs(m.intrinsics()[1][:4]
+                                    - truth["intrinsics"][i][:4]).max())
+                       for i, m in enumerate(models))
+        t1_err = float(np.linalg.norm(
+            models[1].extrinsics_rt_fromref()[3:]
+            - truth["extrinsics_rt_fromref"][0][3:]))
+        regions = [m.valid_intrinsics_region() for m in models]
+        summary["calibrate_cameras"] = dict(
+            rms=rms[0], rms_cpu=rms[1], rms_err=rms_err,
+            Noutliers=outliers[0], Noutliers_cpu=outliers[1],
+            grid_px=grid, rt1_err=rt_err, core_err_px=core_err,
+            t1_err_m=t1_err,
+            region_points=[None if r is None else len(r) for r in regions])
+        log(f"[{phase}] calibrate_cameras card vs CPU: rms {rms[0]!r} "
+            f"vs {rms[1]!r} px ({rms_err:.2e}, tol {TOOLS_RMS_TOL:g}); "
+            f"Noutliers {outliers[0]} vs {outliers[1]}; the models' "
+            f"{TOOLS_GRID} grid "
+            f"{grid:.2e} px (tol {TOOLS_GRID_PX_TOL:g}); camera 1's "
+            f"extrinsics {rt_err:.2e} (tol {TOOLS_RT_TOL:g}); against the "
+            f"truth fx fy cx cy within {core_err:.4f} px (tol "
+            f"{CAL_CORE_PX_TOL:g}), camera 1's t within {t1_err * 1e3:.4f} "
+            f"mm (tol {CAL_T1_TOL_M * 1e3:g}); valid-intrinsics regions of "
+            f"{summary['calibrate_cameras']['region_points']} points")
+        if not (outliers[0] == outliers[1] and rms_err <= TOOLS_RMS_TOL and grid <= TOOLS_GRID_PX_TOL
+                and rt_err <= TOOLS_RT_TOL and core_err <= CAL_CORE_PX_TOL
+                and t1_err <= CAL_T1_TOL_M
+                and all(r is not None and len(r) >= 4 for r in regions)):
+            fail(f"[{phase}] calibrate_cameras: {summary}")
+        m0, m1 = (os.path.join(out["card"], f"camera-{i}.cameramodel")
+                  for i in (0, 1))
+
+        # mrcal-reoptimize, with profiling.timings() of its solve
+        results = {}
+        for d, device in (("card", TOOLS_DEVICE), ("cpu", "cpu")):
+            profiling.reset()
+            with SolveLog() as solves:
+                results[d] = run_tool(
+                    torch, reoptimize,
+                    ["--outfile", os.path.join(out[d], "reoptimized."
+                                               "cameramodel"), m0], device)
+            if d == "card":
+                log(f"[{phase}] profiling.timings() after reoptimize's "
+                    f"solve on the card: {json.dumps(profiling.timings())}")
+                summary["profiling_timings"] = profiling.timings()
+                launches["tools_reoptimize"] = solves.total
+                record_shapes(solves)
+                summary["reoptimize_solves"] = tools_check_solves(
+                    phase, solves, "reoptimize")
+        card["reoptimize"], host["reoptimize"] = (results[d][3]
+                                                  for d in ("card", "cpu"))
+        rms = [results[d][0]["stats"]["rms_reproj_error__pixels"]
+               for d in ("card", "cpu")]
+        grid = tools_grid_px(results["card"][0]["model"],
+                             results["cpu"][0]["model"])
+        summary["reoptimize"] = dict(rms=rms, grid_px=grid)
+        log(f"[{phase}] reoptimize: rms {rms[0]!r} (CPU {rms[1]!r}), grid "
+            f"{grid:.2e} px; {results['card'][2].strip()}")
+        if abs(rms[0] - rms[1]) > TOOLS_RMS_TOL or grid > TOOLS_GRID_PX_TOL:
+            fail(f"[{phase}] reoptimize: {summary['reoptimize']}")
+
+        # mrcal-convert-lensmodel, by re-solve and by --sampled
+        launches["tools_convert_lensmodel"] = dict.fromkeys(LAUNCHED, 0)
+        for mode, extra in (("resolve", []), ("sampled", ["--sampled"])):
+            results = {}
+            for d, device in (("card", TOOLS_DEVICE), ("cpu", "cpu")):
+                with SolveLog() as solves:
+                    results[d] = run_tool(
+                        torch, convert_lensmodel,
+                        extra + ["--outfile", os.path.join(
+                            out[d], f"{mode}.cameramodel"),
+                            TOOLS_CONVERT_TO, m0], device)
+                if d == "card":
+                    for k in LAUNCHED:
+                        launches["tools_convert_lensmodel"][k] += \
+                            solves.total[k]
+                    record_shapes(solves)
+                    # the --sampled fit solves fixed points: no frames, so
+                    # no block to factor
+                    summary[f"convert_{mode}_solves"] = tools_check_solves(
+                        phase, solves, f"convert_lensmodel {mode}",
+                        frames=mode == "resolve")
+            card[f"convert_{mode}"], host[f"convert_{mode}"] = (
+                results[d][3] for d in ("card", "cpu"))
+            rms = [results[d][0]["rms"] for d in ("card", "cpu")]
+            grid = tools_grid_px(results["card"][0]["model"],
+                                 results["cpu"][0]["model"])
+            summary[f"convert_{mode}"] = dict(rms=rms, grid_px=grid)
+            log(f"[{phase}] convert_lensmodel {mode} to {TOOLS_CONVERT_TO}: "
+                f"rms {rms[0]!r} (CPU {rms[1]!r}), grid {grid:.2e} px")
+            if abs(rms[0] - rms[1]) > TOOLS_RMS_TOL or \
+                    grid > TOOLS_GRID_PX_TOL:
+                fail(f"[{phase}] convert_lensmodel {mode}: "
+                     f"{summary[f'convert_{mode}']}")
+
+        # mrcal-report-fov, -reproject-points, -is-within-valid-intrinsics-
+        # region
+        for name, module, argv, stdin, tol in (
+                ("report_fov", report_fov, [m0], "", TOOLS_REPORT_RTOL),
+                ("reproject_points", reproject_points, [m0, m1],
+                 TOOLS_POINTS, TOOLS_PX_TOL),
+                ("is_within_valid_intrinsics_region",
+                 is_within_valid_intrinsics_region, [m0], TOOLS_POINTS, 0)):
+            r, text, _, card[name] = run_tool(torch, module, argv,
+                                              TOOLS_DEVICE, stdin)
+            r_cpu, _, _, host[name] = run_tool(torch, module, argv, "cpu",
+                                               stdin)
+            err = float(np.abs(np.asarray(r, np.float64)
+                               - np.asarray(r_cpu, np.float64)).max())
+            if name == "report_fov":
+                err /= max(abs(v) for v in r_cpu)
+            summary[name] = dict(err=err, card=np.asarray(r).tolist())
+            log(f"[{phase}] {name}: card vs CPU {err:.2e} (tol {tol:g}); "
+                + " | ".join(text.strip().splitlines()))
+            if not err <= tol:
+                fail(f"[{phase}] {name}: card vs CPU {err}")
+
+        # mrcal-triangulate of a pixel pair with both noises
+        x0, y0, r0 = TOOLS_FEATURE
+        # camera 1's view of the point r0 along camera 0's pixel, 0.3 px off
+        v = unproject([x0, y0], *models[0].intrinsics(), normalize=True,
+                      device=cpu) * r0
+        Rt10 = compose_Rt(models[1].Rt_cam_ref(), models[0].Rt_ref_cam(),
+                          device=cpu)
+        q1 = project(transform_point_Rt(Rt10, v, device=cpu),
+                     *models[1].intrinsics(), device=cpu).numpy() \
+            + [0.3, -0.2]
+        argv = ["--q-calibration-stdev", "0.3", "--q-observation-stdev",
+                "0.3", m0, m1, str(x0), str(y0), repr(float(q1[0])),
+                repr(float(q1[1]))]
+        r, text, _, card["triangulate"] = run_tool(torch, triangulate, argv,
+                                                   TOOLS_DEVICE)
+        r_cpu, _, _, host["triangulate"] = run_tool(torch, triangulate, argv,
+                                                    "cpu")
+        err = tools_report_err(r, r_cpu)
+        summary["triangulate"] = dict(report_rel_err=err, range=r["range"])
+        for line in text.splitlines():
+            log(f"[{phase}] triangulate | {line}")
+        log(f"[{phase}] triangulate: the report's numbers card vs CPU "
+            f"{err:.2e} relative (tol {TOOLS_REPORT_RTOL:g})")
+        if not err <= TOOLS_REPORT_RTOL:
+            fail(f"[{phase}] triangulate: card vs CPU {err}")
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # mrcal-stereo's and mrcal-reproject-image's array functions on
+    # [dense_stereo]'s rendered pair
+    raw, dmodels = dense["raw"], dense["models"]
+    args = stereo.parse_args(
+        ["--az-fov-deg", str(DS_RECT["az_fov_deg"]), "--el-fov-deg",
+         str(DS_RECT["el_fov_deg"]), "--disparity-range", "0", str(DS_DMAX),
+         "--range-image", "--write-point-cloud", "0.cameramodel",
+         "1.cameramodel", "0.png", "1.png"])
+    st, card["stereo"] = _sync_time(
+        torch, lambda: stereo.stereo(dmodels, raw, args, dev))
+    t0 = time.perf_counter()
+    st_cpu = stereo.stereo(dmodels, raw, args, cpu)
+    host["stereo"] = time.perf_counter() - t0
+    differ = [ds_images_gate(phase, f"stereo rectified image {i}",
+                             st["rectified"][i], st_cpu["rectified"][i])
+              for i in (0, 1)]
+    # the matcher and the ranging on the card's rectified pair, on the CPU
+    args_r = copy.copy(args)
+    args_r.already_rectified = True
+    st_r = stereo.stereo(dmodels, st["rectified"], args_r, cpu)
+    range_err = ds_rel(st["ranges"], st_r["ranges"])
+    if not (np.array_equal(st["disparity"], st_r["disparity"])
+            and st["disparity"].dtype == st_r["disparity"].dtype
+            and range_err <= DS_RANGE_RTOL):
+        fail(f"[{phase}] stereo: the card's SGM disparity is not the CPU's "
+             f"on the same rectified pair, or ranges differ by {range_err}")
+    d_true, r_true, regions, _ = ds_truth(torch, dmodels, st["rect_models"],
+                                          dev)
+    disp = torch.as_tensor(st["disparity"], device=dev)
+    gates = ds_truth_gate(phase, "stereo SGM", disp, d_true, regions)
+    rng_t = torch.as_tensor(st["ranges"], device=dev)
+    sel = (disp > 0) & (regions["plane"] | regions["box"])
+    range_rel = float(((rng_t - r_true).abs() / r_true)[sel].median())
+    summary["stereo"] = dict(rectified_differ_share=differ,
+                             range_rel_err=range_err, truth=gates,
+                             range_median_rel=range_rel,
+                             points=len(st["points"]))
+    log(f"[{phase}] stereo (SGM, disparities 0-{DS_DMAX}): rectified "
+        f"{tuple(st['disparity'].shape[::-1])}, the card's disparity "
+        f"bit-equal to the CPU's on the card's rectified pair, ranges "
+        f"{range_err:.2e} relative; range vs the truth median relative "
+        f"error {range_rel:.5f}; {len(st['points'])} points in the cloud")
+    if not range_rel < DS_RANGE_MEDIAN_REL:
+        fail(f"[{phase}] stereo: range median relative error {range_rel}")
+    (im, mapxy), card["reproject_image"] = _sync_time(
+        torch, lambda: reproject_image.reproject_image(
+            raw[0], dmodels[0], None, fit="corners", device=dev))
+    t0 = time.perf_counter()
+    im_cpu, mapxy_cpu = reproject_image.reproject_image(
+        raw[0], dmodels[0], None, fit="corners", device=cpu)
+    host["reproject_image"] = time.perf_counter() - t0
+    ulps = float((np.abs(mapxy - mapxy_cpu)
+                  / np.spacing(np.abs(mapxy_cpu))).max())
+    summary["reproject_image"] = dict(
+        map_ulps=ulps, differ_share=ds_images_gate(
+            phase, "reproject_image", im, im_cpu))
+    log(f"[{phase}] reproject_image (camera 0 to its corner-fit pinhole): "
+        f"map card vs CPU {ulps:.1f} float32 ulps (tol {DS_MAP_ULPS})")
+    if ulps > DS_MAP_ULPS:
+        fail(f"[{phase}] reproject_image: the maps differ by {ulps} ulps")
+
+    summary.update(card_s=card, cpu_s=host, launches=launches,
+                   wall_phase_s=time.perf_counter() - t_phase)
+    log(f"[{phase}] walls (s), card (CPU): " + ", ".join(
+        f"{k} {card[k]:.3f} ({host[k]:.3f})" for k in card)
+        + f"; the phase {summary['wall_phase_s']:.1f}")
+    return summary, {k: sorted(v) for k, v in shapes.items()}
 
 
 def phase_profile(torch, phase, oi, ms_per_iteration):
@@ -3362,24 +3802,31 @@ def main():
     stamp("uncertainty")
     others["stereo_opencv8_2cam"] = phase_stereo(torch)
     stamp("stereo_opencv8_2cam")
-    calib = phase_calibrate(torch)
+    calib, cal_inputs = phase_calibrate(torch)
     stamp("calibrate_from_images")
     dense, dense_pairs = phase_dense_stereo(torch)
     stamp("dense_stereo")
-    # the kernels at the front end's shapes, against their plain versions
+    tools, tools_shapes = phase_tools(torch, cal_inputs, dense_pairs)
+    del cal_inputs
+    stamp("tools")
+    # the kernels at the front end's and the tools' shapes, against their
+    # plain versions
     calib_shapes = sorted({tuple(sh) for st in ("stage1", "stage2")
                            for v in calib[st]["shapes"].values()
                            for sh in v}
                           | {(calib["Nobs"], 6, 1)}
                           | ({(2 * calib["pnp_retried"], 6, 1)}
                              if calib["pnp_retried"] else set()))
-    check_fused_at(torch, np.random.default_rng(2), calib_shapes)
+    fused = sorted({sh for sh in calib_shapes if sh[2] > 1
+                    or sh[0] != calib["frames"]}
+                   | set(tools_shapes["cholesky_factor_solve"]))
+    solve = sorted({sh for sh in calib_shapes if sh[0] == calib["frames"]
+                    and sh[2] == 1}
+                   | set(tools_shapes["cholesky_solve_factored"]))
+    check_fused_at(torch, np.random.default_rng(2), sorted(set(fused)
+                                                           | set(solve)))
     entries, main_path["launch_floor"] = time_kernels(torch, card, dict(
-        cholesky_factor_solve=[sh for sh in calib_shapes if sh[2] > 1
-                               or sh[0] != calib["frames"]],
-        cholesky_solve_factored=[sh for sh in calib_shapes
-                                 if sh[0] == calib["frames"]
-                                 and sh[2] == 1]))
+        cholesky_factor_solve=fused, cholesky_solve_factored=solve))
     stamp("kernel times")
     main_path["profile"], per_launch = phase_profile(
         torch, "main", oi_main, main_path["f64"]["ms_per_iteration"])
@@ -3419,7 +3866,8 @@ def main():
                 e["name"]],
             calibrate_from_images_pnp=(calib["pnp_launches"]
                                        if e["name"] == "cholesky_factor_solve"
-                                       else 0))
+                                       else 0),
+            **{path: n[e["name"]] for path, n in tools["launches"].items()})
         e["device_us_per_launch_main_path"] = per_launch[e["name"]]
     log(f"[main] summary {json.dumps(main_path)}")
     for name, (_, summary) in list(others.items()) + list(batches.items()):
@@ -3430,6 +3878,7 @@ def main():
     log(f"[uncertainty] summary {json.dumps(uncertainty)}")
     log(f"[calibrate_from_images] summary {json.dumps(calib)}")
     log(f"[dense_stereo] summary {json.dumps(dense)}")
+    log(f"[tools] summary {json.dumps(tools)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

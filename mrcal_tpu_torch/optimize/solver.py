@@ -31,13 +31,12 @@ splined models:
     as a batch of one
 """
 
-import time
 import warnings
-from contextlib import contextmanager
 
 import numpy as np
 import torch
 
+from .. import profiling
 from .._config import DEFAULT_DTYPE, resolve_device
 from ..lensmodels import (bspline_weights, project_core,
                           splined_window_index, stereographic_uv)
@@ -1736,22 +1735,6 @@ def _unpack_state_np(b_np, spec: ProblemSpec):
     return out
 
 
-class _SolveTimer:
-    """Wall time of each phase of one optimize() call (host clock; every
-    solve phase ends in a device->host read, so its time is complete)."""
-
-    def __init__(self):
-        self.t = {}
-
-    @contextmanager
-    def phase(self, name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.t[name] = self.t.get(name, 0.0) + time.perf_counter() - t0
-
-
 def _precision(kw):
     precision = kw.get("precision")
     if precision is None:
@@ -1793,7 +1776,9 @@ def _solver(lm, spec, arrays, static_idx, kw):
         solve_kw.setdefault("update_threshold", update_threshold)
         if ftol is not None:
             solve_kw.setdefault("ftol", ftol)
-        return lm(spec, arrays, b, static_idx, **solve_kw)
+        # MRCAL_TPU_PROFILE=<logdir> writes a torch.profiler trace per solve
+        with profiling.trace():
+            return lm(spec, arrays, b, static_idx, **solve_kw)
 
     return solve
 
@@ -1917,7 +1902,7 @@ def optimize(*, device=None, **kw):
             return sharded_lm_solve_device(spec, arrays, b, mesh,
                                            **solve_kw)
     device = resolve_device(device)
-    timer = _SolveTimer()
+    timer = profiling._SolveTimer()
     kw = _layout.normalize_inputs(kw)
     spec = spec_from_inputs(**kw)
 
@@ -2030,7 +2015,7 @@ def optimize_batch(problems, *, device=None, **common_kw):
                                  "indices across the batch")
     device = resolve_device(device)
     precision = _precision(common_kw)
-    timer = _SolveTimer()
+    timer = profiling._SolveTimer()
     P = len(kws)
     np_obs = [_np_observations(kw) for kw in kws]
 

@@ -1,0 +1,16 @@
+"""The command-line tools of the port, one module per script of the JAX
+package's ``tools/`` (``tools/mrcal-calibrate-cameras`` is
+``calibrate_cameras``): the same options, report lines and output files.
+
+Run one as ``python -m mrcal_tpu_torch.tools.calibrate_cameras ...``; it
+runs on the CUDA card, and raises without one.  Each module's
+``main(argv=None, *, device=None)`` is the same tool as a function: it
+takes the argument list (``sys.argv[1:]`` by default) and the device
+(``device="cpu"`` runs it on the CPU), and returns what it computed.  The
+tools that read or write image files keep their computation in a function
+of arrays, which ``main`` wraps in the file I/O.
+
+The ``mrcal-show-*`` tools and the options that draw (``--explore``,
+``--viz``) wait for the port of ``visualization.py``; given a drawing
+option, a tool exits nonzero and says so.
+"""

@@ -773,3 +773,84 @@ def sgm_references(names):
                          dmax)))
         out[name] = r
     return out
+
+
+# ----------------------------------------------------------------------------
+# tests/test_torch_tools_*.py
+# ----------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_tool(pkg, name, argv, stdin=""):
+    """A tool run in this process with its standard streams captured: the
+    JAX package's script tools/mrcal-<name> (pkg "jax", by runpy with
+    sys.argv set) or the port's mrcal_tpu_torch.tools.<name>.main(argv,
+    device="cpu") (pkg "torch", imported only then).  Returns (exit code,
+    stdout, stderr, main's result (None for the JAX scripts)).  A
+    SystemExit with a message exits 1 with the message on stderr, as the
+    interpreter does."""
+    import contextlib
+    import importlib
+    import io
+    import runpy
+    out, err = io.StringIO(), io.StringIO()
+    saved = sys.argv, sys.stdin
+    code, result = 0, None
+    try:
+        sys.stdin = io.StringIO(stdin)
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            if pkg == "jax":
+                path = os.path.join(ROOT, "tools", f"mrcal-{name}")
+                sys.argv = [path] + list(argv)
+                runpy.run_path(path, run_name="__main__")
+            else:
+                module = importlib.import_module(
+                    f"mrcal_tpu_torch.tools.{name.replace('-', '_')}")
+                result = module.main(list(argv), device="cpu")
+    except SystemExit as e:
+        if e.code is None or isinstance(e.code, int):
+            code = e.code or 0
+        else:
+            code = 1
+            err.write(f"{e.code}\n")
+    finally:
+        sys.argv, sys.stdin = saved
+    return code, out.getvalue(), err.getvalue(), result
+
+
+def jit_jax_unproject():
+    """In a process that runs the JAX package's scripts: the package's
+    top-level unproject (the name its scripts call) compiled once per lens
+    model, normalization and shape.  Eagerly, each call of it costs ~0.3 s
+    on the CPU, and mrcal-triangulate's sensitivity sweeps make some 950
+    of them: minutes, until XLA's compiler runs out of memory.  Compiled,
+    the results move by roundoff only."""
+    import functools
+    import jax
+    import mrcal_tpu
+    eager = mrcal_tpu.unproject
+
+    @functools.lru_cache(maxsize=None)
+    def compiled(lensmodel, normalize):
+        return jax.jit(lambda q, i: eager(q, lensmodel, i,
+                                          normalize=normalize))
+
+    @functools.wraps(eager)
+    def unproject(q, lensmodel, intrinsics_data, *, normalize=False,
+                  get_gradients=False, out=None):
+        if get_gradients or out is not None:
+            return eager(q, lensmodel, intrinsics_data, normalize=normalize,
+                         get_gradients=get_gradients, out=out)
+        return compiled(lensmodel, bool(normalize))(
+            np.asarray(q, np.float64), np.asarray(intrinsics_data,
+                                                  np.float64))
+    mrcal_tpu.unproject = unproject
+
+
+def run_jax_tools(runs):
+    """The JAX package's scripts on runs [(name, argv, stdin)], one after
+    the other in this process: [(exit code, stdout, stderr)]."""
+    jit_jax_unproject()
+    return [run_tool("jax", name, argv, stdin)[:3]
+            for name, argv, stdin in runs]

@@ -1,13 +1,16 @@
 """The port stands alone: importing mrcal_tpu_torch (the splined path,
 the multi-device package, the uncertainty modules, the .cahvor format,
 utils, synthetic_data, the calibration front end (image, detector,
-calibration) and dense stereo (image_transforms, stereo, stereo_sgm)
-included, and building the splined bench problem) loads neither jax nor
-mrcal_tpu, and no module of the port (nor chip_smoke.py) imports either.
-The public entry points of the projection, utils, uncertainty, image,
-detector, calibration and dense-stereo modules run on the card unless
-told otherwise, and the top level exports every dense-stereo name of the
-JAX package with its signature, plus device."""
+calibration), dense stereo (image_transforms, stereo, stereo_sgm),
+profiling and every command-line tool included, and building the splined
+bench problem) loads neither jax nor mrcal_tpu, and no module of the port
+(nor chip_smoke.py) imports either.  The public entry points of the
+projection, utils, uncertainty, image, detector, calibration and
+dense-stereo modules, and every tool's main, run on the card unless told
+otherwise, and the top level exports every dense-stereo name of the JAX
+package with its signature, plus device.  Every JAX script that draws
+nothing has its module in mrcal_tpu_torch.tools, which runs with python
+-m and has no CPU fallback."""
 
 import ast
 import os
@@ -29,6 +32,14 @@ def _port_sources():
     return sorted(out)
 
 
+# the JAX package's scripts that draw nothing, and the port's module of
+# each (tools/mrcal-calibrate-cameras -> calibrate_cameras)
+JAX_TOOLS = sorted(f[len("mrcal-"):] for f in os.listdir(os.path.join(
+    ROOT, "tools")) if f.startswith("mrcal-")
+    and not f.startswith("mrcal-show-"))
+TOOL_MODULES = [t.replace("-", "_") for t in JAX_TOOLS]
+
+
 def _forbidden(name):
     top = name.split(".")[0]
     return top in FORBIDDEN
@@ -45,7 +56,10 @@ def test_import_loads_no_jax():
             "mrcal_tpu_torch.cahvor, mrcal_tpu_torch.synthetic_data, "
             "mrcal_tpu_torch.image, mrcal_tpu_torch.detector, "
             "mrcal_tpu_torch.calibration, mrcal_tpu_torch.image_transforms, "
-            "mrcal_tpu_torch.stereo, mrcal_tpu_torch.stereo_sgm; "
+            "mrcal_tpu_torch.stereo, mrcal_tpu_torch.stereo_sgm, "
+            "mrcal_tpu_torch.profiling, "
+            + "".join(f"mrcal_tpu_torch.tools.{m}, " for m in TOOL_MODULES)
+            + "mrcal_tpu_torch.tools; "
             "from mrcal_tpu_torch.lensmodels import splined_deltau; "
             "from mrcal_tpu_torch.optimize.solver import "
             "build_normal_equations_splined, lm_solve; "
@@ -293,3 +307,77 @@ def test_dense_stereo_export_matches_jax_signature(name):
     assert device.default is None
     assert [(p.name, p.kind, p.default) for p in got.values()] == \
         [(p.name, p.kind, p.default) for p in want.values()]
+
+
+def test_every_tool_that_draws_nothing_is_ported():
+    assert len(JAX_TOOLS) == 17
+    port = sorted(f[:-3] for f in os.listdir(os.path.join(
+        ROOT, "mrcal_tpu_torch", "tools"))
+        if f.endswith(".py") and not f.startswith("_"))
+    assert port == TOOL_MODULES
+
+
+# for each tool, arguments that parse (the files need not exist: main
+# asks for the device before it reads anything)
+TOOL_ARGV = {
+    "calibrate_cameras": ["--corners-cache", "c.vnl", "--focal", "700",
+                          "--object-spacing", "0.1", "--object-width-n",
+                          "10", "*"],
+    "convert_lensmodel": ["LENSMODEL_OPENCV4", "m.cameramodel"],
+    "cull_corners": ["c.vnl"],
+    "from_cahvor": ["m.cahvor"],
+    "from_kalibr": ["camchain.yaml"],
+    "from_ros": ["camera.yaml"],
+    "graft_models": ["a.cameramodel", "b.cameramodel"],
+    "is_within_valid_intrinsics_region": ["m.cameramodel"],
+    "reoptimize": ["m.cameramodel"],
+    "report_fov": ["m.cameramodel"],
+    "reproject_image": ["--outfile", "o.png", "a.cameramodel",
+                        "b.cameramodel", "i.png"],
+    "reproject_points": ["a.cameramodel", "b.cameramodel"],
+    "rotate_corners": ["--rot", "90", "--object-width-n", "10", "c.vnl"],
+    "stereo": ["--az-fov-deg", "50", "--el-fov-deg", "40", "a.cameramodel",
+               "b.cameramodel", "0.png", "1.png"],
+    "to_cahvor": ["m.cameramodel"],
+    "to_kalibr": ["m.cameramodel"],
+    "triangulate": ["a.cameramodel", "b.cameramodel", "1", "2", "3", "4"],
+}
+
+
+@pytest.mark.parametrize("module", TOOL_MODULES)
+def test_tool_main_runs_on_the_card_unless_told(module, monkeypatch,
+                                                tmp_path):
+    """Without device="cpu" a tool's main wants the card: without one it
+    raises before it reads or writes anything, rather than fall back to
+    the CPU."""
+    import importlib
+    tool = importlib.import_module(f"mrcal_tpu_torch.tools.{module}")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tool.main(TOOL_ARGV[module])
+    assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("module", TOOL_MODULES)
+def test_tool_help(module, capsys):
+    """--help prints the JAX script's options."""
+    import importlib
+    tool = importlib.import_module(f"mrcal_tpu_torch.tools.{module}")
+    with pytest.raises(SystemExit) as e:
+        tool.main(["--help"], device="cpu")
+    assert e.value.code == 0
+    assert f"python -m mrcal_tpu_torch.tools.{module}" in \
+        capsys.readouterr().out
+
+
+def test_tool_runs_as_a_module_without_a_fallback(tmp_path):
+    """python -m runs a tool; the shell has no CPU switch, so on a machine
+    without a card it exits nonzero and says why."""
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "mrcal_tpu_torch.tools.report_fov",
+         "m.cameramodel"], cwd=tmp_path, env=env, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr
