@@ -177,6 +177,29 @@ nonzero:
    images as dense_stereo gates them).  Each tool's wall on the card and
    on the CPU; the tools' kernel shapes join the kernel checks and
    times.
+   visualization: the data half of every plot of
+   mrcal_tpu_torch.visualization and the mrcal-show-* tools, at the
+   tools' default grids, for tools' two calibrated cameras (OPENCV8, 83
+   frames of the 14 x 14 board, 800 x 600, with their optimization_inputs
+   and valid-intrinsics regions) and for splined_30x18's solved model: the
+   projection difference of the two at infinity (60 x 45), camera 0's
+   projection uncertainty (30 x 22, mean-pcam, worstdirection-stdev and
+   rms-stdev) and against distance (40 ranges along the observations'
+   centroid), its distortion off pinhole (60 x 45) and radial profile,
+   its resolution (40 wide), both cameras' board residuals (the
+   vectorfield, magnitudes, directions, regional means, histogram samples
+   and the worst observation's field), the geometry (the cameras and the
+   83 boards in the plot frame), the stereo-pair difference of the pair
+   against itself with camera 1 yawed by 1 mrad (the library's, and
+   mrcal-show-stereo-pair-diff's rect0 difference), and splined_30x18's
+   deltau over 60 x 45 (held where the grid's unprojection converges, the
+   same pixels on both; off the observed region the solved spline has no
+   inverse).  Each on the card (timed warm) and on the CPU,
+   held card against CPU: difflen, projections and deltau 1e-8 px,
+   uncertainties 1e-7 relative, residuals 1e-12 of the largest (or of
+   1 px, if the largest is smaller), the
+   resolution 1e-8 relative, poses 1e-12 m.  No batched-Cholesky kernel
+   may launch, and nothing is drawn (no matplotlib import).
 6. mesh: the multi-device path (mrcal_tpu_torch.parallel), the
    observations sharded over a torch.distributed group.
    nccl1: a one-rank NCCL group (a file store in a temporary directory,
@@ -1897,7 +1920,8 @@ def phase_uncertainty(torch, oi_main, oi_4cam, oi_splined):
     opencv8_4cam camera 2 and splined_30x18 (mean-pcam and ccp at 1 m) on
     the 30 x 22 grid; then projection_diff with uncertainties between the
     main path's model and a solve of its odd-numbered 42 frames, at
-    infinity and at 1 m.  Each against the same call on the CPU."""
+    infinity and at 1 m.  Each against the same call on the CPU.  Returns
+    the summary and splined_30x18's solved cameramodel."""
     from mrcal_tpu_torch import (cameramodel, projection_diff, sample_imager,
                                  unproject)
     from mrcal_tpu_torch.ops import batched_cholesky as bc
@@ -1910,13 +1934,14 @@ def phase_uncertainty(torch, oi_main, oi_4cam, oi_splined):
         q = sample_imager(UNC_GRID, None, *model.imagersize())
         return unproject(q, *model.intrinsics(), normalize=True)
 
-    solved = {}
+    solved, models = {}, {}
     for name, oi, icam in (("opencv8_1cam", oi_main, 0),
                            ("opencv8_4cam", oi_4cam, 2),
                            ("splined_30x18", oi_splined, 0)):
         solved[name] = _solved(oi)
         model = cameramodel(optimization_inputs=solved[name],
                             icam_intrinsics=icam)
+        models[name] = model
         v = grid_points(model)
         nstate = spec_from_inputs(**solved[name]).Nstate
         if name == "opencv8_1cam":
@@ -1972,7 +1997,8 @@ def phase_uncertainty(torch, oi_main, oi_4cam, oi_splined):
     wall = time.perf_counter() - t_phase
     log(f"[{phase}] phase {wall:.1f} s")
     return dict(calls=calls, diffs=diffs, odd_frames_launches=odd_launches,
-                conditioning=conditioning, wall_s=wall)
+                conditioning=conditioning, wall_s=wall), \
+        models["splined_30x18"]
 
 
 def stereo_features(torch, models, rng, n):
@@ -3383,7 +3409,8 @@ def phase_tools(torch, cal, dense):
     the card against the same calls on the CPU.  cal:
     phase_calibrate()'s dict(vnl, truth); dense: phase_dense_stereo()'s
     pairs (the raw rendered pair and the true models).  Returns the
-    summary and the (B, n, K) shapes of the tools' kernel launches."""
+    summary, the (B, n, K) shapes of the tools' kernel launches and the
+    two cameramodels mrcal-calibrate-cameras wrote on the card."""
     import copy
     from mrcal_tpu_torch import (cameramodel, compose_Rt, profiling, project,
                                  transform_point_Rt, unproject)
@@ -3674,7 +3701,227 @@ def phase_tools(torch, cal, dense):
     log(f"[{phase}] walls (s), card (CPU): " + ", ".join(
         f"{k} {card[k]:.3f} ({host[k]:.3f})" for k in card)
         + f"; the phase {summary['wall_phase_s']:.1f}")
-    return summary, {k: sorted(v) for k, v in shapes.items()}
+    return summary, {k: sorted(v) for k, v in shapes.items()}, models
+
+
+VIZ_DEVICE = None
+VIZ_DIFF_GRID = 60                      # the tools' default grids
+VIZ_UNC_GRID = 30
+VIZ_RES_GRID = 40
+VIZ_NDISTANCES = 40
+VIZ_YAW = 1e-3                          # rad, camera 1 of the second pair
+VIZ_PX_TOL = 1e-8                       # difflen, project/unproject, deltau
+VIZ_UNC_RTOL = 1e-7                     # uncertainty grids, relative
+# of the largest residual or of 1 px, whichever is larger: the residuals
+# carry the roundoff of the ~800-px coordinates they are differences of,
+# and this calibration's are ~0.03 px (a card-vs-CPU difference of
+# 2.9e-13 px was 1.44e-12 of its largest, PERF.md PR 14)
+VIZ_RESIDUAL_TOL = 1e-12
+VIZ_RES_RTOL = 1e-8                     # resolution, relative
+VIZ_POSE_TOL = 1e-12                    # m
+VIZ_ROUNDTRIP_PX = 1e-6                 # a converged unprojection
+
+
+def phase_visualization(torch, models, splined):
+    """[visualization]: the data half of every plot of
+    mrcal_tpu_torch.visualization and the mrcal-show-* tools at full width
+    (the tools' default grids), on the card and then on the CPU in this
+    process: for [tools]' two calibrated cameras of stereo_opencv8_2cam
+    (`models`) and for splined_30x18's solved model (`splined`).  Each
+    array is held card against CPU (VIZ_* tolerances); no batched-Cholesky
+    kernel may launch, and nothing draws (no matplotlib is imported).
+    Returns the summary: each data function's wall on the card and on the
+    CPU, and its difference."""
+    from mrcal_tpu_torch import cameramodel, compose_rt
+    from mrcal_tpu_torch import visualization as viz
+    from mrcal_tpu_torch._config import resolve_device
+    from mrcal_tpu_torch.model_analysis import model_resolution__deg_pixel
+    from mrcal_tpu_torch.ops import batched_cholesky as bc
+    from mrcal_tpu_torch.tools import show_stereo_pair_diff
+    phase = "visualization"
+    t_phase = time.perf_counter()
+    dev = resolve_device(VIZ_DEVICE)
+    m0, m1 = models
+    m1_yawed = cameramodel(m1)
+    m1_yawed.extrinsics_rt_fromref(compose_rt(
+        np.array([0.0, VIZ_YAW, 0.0, 0.0, 0.0, 0.0]),
+        m1.extrinsics_rt_fromref(), device="cpu").numpy())
+
+    def residuals(icam, device):
+        oi = models[icam].optimization_inputs()
+        res, obs, _ = viz._board_residuals(oi, icam_intrinsics=icam,
+                                           device=device)
+        q, r, _ = viz._inlier_residuals(models[icam], None, None, None,
+                                        device)
+        mean = viz._regional_data(models[icam], None, None, None, 20, None,
+                                  device)[0]
+        worst = viz._board_observation_data(
+            oi, 0, from_worst=True, i_observations_sorted_from_worst=None,
+            x=None, residuals=None, device=device)
+        return dict(residuals=res, vectorfield=r, histogram=r.ravel(),
+                    magnitudes=np.linalg.norm(r, axis=-1),
+                    directions_deg=np.degrees(np.arctan2(r[:, 1], r[:, 0])),
+                    regional=mean, worst=worst[2],
+                    worst_index=np.array(worst[0]), pixels=q)
+
+    def geometry(device):
+        d = viz._geometry_data(
+            [m0, m1], frames_rt_toref=None, points=None,
+            icam_extrinsics_fromsolve=None, cameras_Rt_plot_ref=None,
+            show_calobjects="all", show_points="all", calobject_warp=None,
+            axis_scale=None, object_width_n=None, object_height_n=None,
+            object_spacing=None, device=device)
+        return dict(cameras=d["cameras"], boards=d["boards"])
+
+    def splined_correction(device):
+        """deltau where the grid's unprojection converged (its projection
+        back, (u + deltau) f + c, within VIZ_ROUNDTRIP_PX of the pixel),
+        NaN elsewhere: off the observed region the solved spline has no
+        inverse, and Newton's result there is roundoff-chaotic."""
+        du, q, u, _ = viz._splined_correction_data(
+            splined, gridn_width=VIZ_DIFF_GRID, gridn_height=None,
+            device=device)
+        f, c = (np.asarray(splined.intrinsics()[1][i:i + 2])
+                for i in (0, 2))
+        converged = np.abs((u + du) * f + c - q).max(axis=-1) \
+            <= VIZ_ROUNDTRIP_PX
+        return dict(deltau=np.where(converged[..., None], du, np.nan),
+                    converged=converged, q=q)
+
+    def uncertainty(isotropic):
+        return lambda device: dict(zip(("uncertainty", "q"),
+                                       viz._projection_uncertainty_data(
+            m0, gridn_width=VIZ_UNC_GRID, gridn_height=None, distance=None,
+            isotropic=isotropic, method="mean-pcam",
+            observed_pixel_uncertainty=None, device=device)))
+
+    # name -> (the data of the plot on a device, {array: (kind, tolerance)});
+    # kind "abs" (an absolute difference), "rel" (relative, each entry),
+    # "max" (of the largest entry, or of 1 if that is smaller) or "equal"
+    px, unc = ("abs", VIZ_PX_TOL), ("rel", VIZ_UNC_RTOL)
+    resid = ("max", VIZ_RESIDUAL_TOL)
+    calls = {
+        "projection_diff": (lambda device: dict(zip(
+            ("difflen", "diff", "q0", "Rt10"), viz._projection_diff_data(
+                (m0, m1), gridn_width=VIZ_DIFF_GRID, gridn_height=None,
+                distance=None, intrinsics_only=False,
+                use_uncertainties=False, focus_center=None,
+                focus_radius=-1, implied_Rt10=None, device=device))),
+            dict(difflen=px)),
+        "projection_uncertainty worstdirection-stdev": (
+            uncertainty(False), dict(uncertainty=unc)),
+        "projection_uncertainty rms-stdev": (uncertainty(True),
+                                             dict(uncertainty=unc)),
+        "projection_uncertainty_vs_distance": (lambda device: dict(zip(
+            ("distances", "uncertainty"), viz._uncertainty_vs_distance_data(
+                m0, where="centroid", distance_min=0.2, distance_max=100.0,
+                Ndistances=VIZ_NDISTANCES, method="mean-pcam",
+                isotropic=False, observed_pixel_uncertainty=None,
+                device=device))), dict(uncertainty=unc)),
+        "distortion_off_pinhole": (lambda device: dict(zip(
+            ("q", "diff"), viz._distortion_off_pinhole_data(
+                m0, gridn_width=VIZ_DIFF_GRID, gridn_height=None,
+                device=device))), dict(diff=px)),
+        "distortion_off_pinhole_radial": (lambda device: dict(zip(
+            ("th_deg", "r_obs", "r_pinhole"),
+            viz._radial_data(m0, device=device))),
+            dict(th_deg=px, r_pinhole=px)),
+        "model_resolution": (lambda device: dict(
+            resolution=model_resolution__deg_pixel(
+                m0, VIZ_RES_GRID, device=device).cpu().numpy()),
+            dict(resolution=("rel", VIZ_RES_RTOL))),
+        "residuals camera 0": (lambda device: residuals(0, device),
+                               dict(residuals=resid, vectorfield=resid,
+                                    magnitudes=resid, regional=resid,
+                                    worst=resid,
+                                    worst_index=("equal", 0))),
+        "residuals camera 1": (lambda device: residuals(1, device),
+                               dict(residuals=resid, vectorfield=resid,
+                                    magnitudes=resid, regional=resid,
+                                    worst=resid,
+                                    worst_index=("equal", 0))),
+        "geometry": (geometry, dict(cameras=("abs", VIZ_POSE_TOL),
+                                    boards=("abs", VIZ_POSE_TOL))),
+        "stereo_pair_diff (the tool's rect0 diff)": (
+            lambda device: dict(zip(
+                ("difflen", "diff", "q0", "Rt10"),
+                show_stereo_pair_diff.rect0_diff(
+                    [m0, m1], [m0, m1_yawed], 60, 50, device))),
+            dict(difflen=px)),
+        "stereo_pair_diff": (lambda device: dict(zip(
+            ("difflen", "diff", "q0"), viz._stereo_pair_diff_data(
+                ((m0, m1), (m0, m1_yawed)), gridn_width=VIZ_DIFF_GRID,
+                gridn_height=None, distance=None, device=device))),
+            dict(difflen=px)),
+        "splined_model_correction": (splined_correction,
+                                     dict(deltau=px, converged=("equal", 0),
+                                          q=px)),
+    }
+
+    def difference(kind, a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if a.shape != b.shape:
+            return np.inf
+        if kind == "equal":
+            return 0.0 if np.array_equal(a, b, equal_nan=True) else np.inf
+        ok = ~np.isnan(b)
+        if not np.array_equal(ok, ~np.isnan(a)):
+            return np.inf
+        err = np.abs(a[ok] - b[ok])
+        if kind == "rel":
+            err = err / np.abs(b[ok])
+        elif kind == "max":
+            err = err / max(np.abs(b[ok]).max(), 1.0)
+        return float(err.max()) if err.size else 0.0
+
+    bc.reset_launches()
+    summary = {}
+    for name, (fn, gates) in calls.items():
+        fn(dev)                 # warm-up: the first call of each shape
+        card, wall = _sync_time(torch, lambda: fn(dev))
+        t0 = time.perf_counter()
+        cpu = fn("cpu")
+        wall_cpu = time.perf_counter() - t0
+        errs = {k: difference(kind, card[k], cpu[k])
+                for k, (kind, _) in gates.items()}
+        shapes = {k: list(np.shape(v)) for k, v in card.items()}
+        summary[name] = dict(card_s=wall, cpu_s=wall_cpu, err=errs,
+                             shapes=shapes)
+        extra = ""
+        if name == "splined_model_correction":
+            n = int(card["converged"].sum())
+            summary[name]["converged"] = n
+            extra = (f"; the unprojection converged at {n} of "
+                     f"{card['converged'].size} pixels on both")
+        if name.startswith("residuals"):
+            # not gated: the direction of a residual near 0 is roundoff
+            d_err = difference("abs", card["directions_deg"],
+                               cpu["directions_deg"])
+            summary[name]["directions_deg_err"] = d_err
+            r = card["histogram"]
+            extra = (f"; directions {d_err:.2e} deg, worst observation "
+                     f"{int(card['worst_index'])}, {len(r)} histogram "
+                     f"samples, rms {float(np.sqrt(np.mean(r * r))):.6f} px")
+        log(f"[{phase}] {name} {shapes}: card {wall * 1e3:.1f} ms, CPU "
+            f"{wall_cpu * 1e3:.1f} ms; card vs CPU "
+            + ", ".join(f"{k} {errs[k]:.2e} ({gates[k][0]}, tol "
+                        f"{gates[k][1]:g})" for k in gates) + extra)
+        bad = [k for k, (kind, tol) in gates.items()
+               if not (errs[k] <= tol and np.isfinite(
+                   np.asarray(card[k], np.float64)[~np.isnan(
+                       np.asarray(card[k], np.float64))]).all())]
+        if bad:
+            fail(f"[{phase}] {name}: {bad} disagree, card vs CPU {errs}")
+    launches = dict(bc.launches)
+    if any(launches.values()):
+        fail(f"[{phase}] the plots' data launched batched-Cholesky "
+             f"kernels: {launches}")
+    if "matplotlib" in sys.modules:
+        fail(f"[{phase}] matplotlib was imported")
+    wall = time.perf_counter() - t_phase
+    log(f"[{phase}] no batched-Cholesky launch ({launches}); nothing "
+        f"drawn; the phase {wall:.1f} s")
+    return dict(calls=summary, launches=launches, wall_phase_s=wall)
 
 
 def phase_profile(torch, phase, oi, ms_per_iteration):
@@ -3796,9 +4043,9 @@ def main():
     stamp("callbacks")
     triangulate = phase_triangulate(torch)
     stamp("triangulate")
-    uncertainty = phase_uncertainty(torch, oi_main,
-                                    others["opencv8_4cam"][0],
-                                    others["splined_30x18"][0])
+    uncertainty, splined_model = phase_uncertainty(
+        torch, oi_main, others["opencv8_4cam"][0],
+        others["splined_30x18"][0])
     stamp("uncertainty")
     others["stereo_opencv8_2cam"] = phase_stereo(torch)
     stamp("stereo_opencv8_2cam")
@@ -3806,9 +4053,13 @@ def main():
     stamp("calibrate_from_images")
     dense, dense_pairs = phase_dense_stereo(torch)
     stamp("dense_stereo")
-    tools, tools_shapes = phase_tools(torch, cal_inputs, dense_pairs)
+    tools, tools_shapes, tool_models = phase_tools(torch, cal_inputs,
+                                                   dense_pairs)
     del cal_inputs
     stamp("tools")
+    visualization = phase_visualization(torch, tool_models, splined_model)
+    del tool_models, splined_model
+    stamp("visualization")
     # the kernels at the front end's and the tools' shapes, against their
     # plain versions
     calib_shapes = sorted({tuple(sh) for st in ("stage1", "stage2")
@@ -3867,7 +4118,8 @@ def main():
             calibrate_from_images_pnp=(calib["pnp_launches"]
                                        if e["name"] == "cholesky_factor_solve"
                                        else 0),
-            **{path: n[e["name"]] for path, n in tools["launches"].items()})
+            **{path: n[e["name"]] for path, n in tools["launches"].items()},
+            visualization=visualization["launches"][e["name"]])
         e["device_us_per_launch_main_path"] = per_launch[e["name"]]
     log(f"[main] summary {json.dumps(main_path)}")
     for name, (_, summary) in list(others.items()) + list(batches.items()):
@@ -3879,6 +4131,7 @@ def main():
     log(f"[calibrate_from_images] summary {json.dumps(calib)}")
     log(f"[dense_stereo] summary {json.dumps(dense)}")
     log(f"[tools] summary {json.dumps(tools)}")
+    log(f"[visualization] summary {json.dumps(visualization)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

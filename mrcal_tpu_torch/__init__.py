@@ -17,9 +17,11 @@ calibration front end: image files (``image``), chessboard detection
 (``detector``) and the seed of a calibration (``calibration``), and dense
 stereo: image reprojection between lens models (``image_transforms``),
 rectification, ranging, feature and block matching (``stereo``) and
-census + semi-global matching (``stereo_sgm``).  Every lens model of the
-JAX package projects: the parametric ones, CAHVOR, CAHVORE and the splined
-one.
+census + semi-global matching (``stereo_sgm``), and the plots of a
+calibration (``visualization``: each ``show_*`` computes its arrays on the
+device and draws them with matplotlib, imported only then).  Every lens
+model of the JAX package projects: the parametric ones, CAHVOR, CAHVORE and
+the splined one.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.  Everything is float64 unless a caller asks for float32,
@@ -137,5 +139,25 @@ from .utils import (  # noqa: F401
     sample_imager_unproject,
     sorted_eig,
     write_point_cloud_as_ply,
+)
+from .visualization import (  # noqa: F401
+    annotate_image__valid_intrinsics_region,
+    fitted_gaussian_equation,
+    imagergrid_using,
+    show_distortion_off_pinhole,
+    show_distortion_off_pinhole_radial,
+    show_geometry,
+    show_projection_diff,
+    show_projection_uncertainty,
+    show_projection_uncertainty_vs_distance,
+    show_residuals_board_observation,
+    show_residuals_directions,
+    show_residuals_histogram,
+    show_residuals_magnitudes,
+    show_residuals_regional,
+    show_residuals_vectorfield,
+    show_splined_model_correction,
+    show_stereo_pair_diff,
+    show_valid_intrinsics_region,
 )
 from .cahvor import read_transforms  # noqa: F401

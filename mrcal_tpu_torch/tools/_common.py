@@ -1,19 +1,8 @@
-"""What the port's tools share: the refusal of the drawing options and
-the conversion of results to host arrays."""
+"""What the port's tools share: the conversion of results to host arrays
+and the parsing of point lists."""
 
 import numpy as np
 import torch
-
-# where the port of the drawing code stands in the repository's plan
-_NEXT_SLICE = ("ROADMAP.md queue 1 item 4: visualization.py, the "
-               "mrcal-show-* tools and the drawing options")
-
-
-def refuse_drawing(option):
-    """Exit nonzero: `option` draws through visualization.py, which the
-    port does not have yet."""
-    raise SystemExit(f"{option} draws through visualization.py, which "
-                     f"mrcal_tpu_torch does not have yet ({_NEXT_SLICE})")
 
 
 def host(x):

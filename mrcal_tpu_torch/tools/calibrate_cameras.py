@@ -4,9 +4,11 @@ The port of tools/mrcal-calibrate-cameras: parse corners, seed
 (stereographic guess + PnP + pose graph OR --seed models), staged solves
 (geometry-only -> +stereographic core -> splined fxycxy-reset ->
 everything-but-warp -> final with warp), full outlier rejection, write
-.cameramodel files embedding the complete optimization_inputs.  Every
-solve runs on the CUDA card (device="cpu" from Python runs it on the
-CPU).
+.cameramodel files embedding the complete optimization_inputs; with
+--explore, an interactive shell with the solve and the show_* plots in
+scope (IPython if it imports, else the standard library's).  Every solve
+and every plot's data runs on the CUDA card (device="cpu" from Python
+runs them on the CPU).
 
     python -m mrcal_tpu_torch.tools.calibrate_cameras \\
         --corners-cache corners.vnl --lensmodel LENSMODEL_OPENCV8 \\
@@ -21,7 +23,7 @@ import sys
 import numpy as np
 
 from .._config import resolve_device
-from ._common import host, refuse_drawing
+from ._common import host
 
 
 def parse_args(argv=None):
@@ -54,9 +56,9 @@ def parse_args(argv=None):
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--explore", action="store_true",
                    help="after the solve, drop into an interactive "
-                        "Python shell with the solved models and the show_* "
-                        "plotting helpers (not in the port yet: the tool "
-                        "exits nonzero)")
+                        "Python shell with the solved models, "
+                        "optimization_inputs, stats, and show_* plotting "
+                        "helpers in scope")
     p.add_argument("globs", nargs="+",
                    help="one glob per camera matching image filenames")
     a = p.parse_args(argv)
@@ -166,8 +168,6 @@ def main(argv=None, *, device=None):
     card unless "cpu").  Returns dict(stats, optimization_inputs, models)
     of the final solve."""
     args = parse_args(argv)
-    if args.explore:
-        refuse_drawing("--explore")
     device = resolve_device(device)
     import mrcal_tpu_torch as mrcal
 
@@ -286,7 +286,69 @@ def main(argv=None, *, device=None):
                 f"rms={rms:.3f}px")
         print(f"Wrote {fname}")
         models.append(m)
+    if args.explore:
+        explore(models, oi, stats, paths, device)
     return dict(stats=stats, optimization_inputs=oi, models=models)
+
+
+def explore_namespace(models, optimization_inputs, stats, paths, device):
+    """The names of the --explore shell: models, optimization_inputs,
+    stats, paths, np, mrcal, and the show_* plots of the solve, each on
+    `device` (per camera, titled by it, where the plot is of one
+    model)."""
+    import mrcal_tpu_torch as mrcal
+
+    def per_camera(f, icam=None, **kwargs):
+        for i in ((icam,) if icam is not None else range(len(models))):
+            f(models[i], title=f"{f.__name__} camera {i}", device=device,
+              **kwargs)
+
+    def of_solve(f, *args, **kwargs):
+        return f(optimization_inputs, *args, device=device, **kwargs)
+
+    return dict(
+        np=np, mrcal=mrcal, models=models,
+        optimization_inputs=optimization_inputs, stats=stats, paths=paths,
+        show_geometry=lambda **kw: mrcal.show_geometry(models, device=device,
+                                                       **kw),
+        show_projection_uncertainty=lambda icam=None, **kw: per_camera(
+            mrcal.show_projection_uncertainty, icam, **kw),
+        show_distortion_off_pinhole=lambda icam=None, **kw: per_camera(
+            mrcal.show_distortion_off_pinhole, icam, **kw),
+        show_valid_intrinsics_region=lambda icam=None, **kw: per_camera(
+            mrcal.show_valid_intrinsics_region, icam, **kw),
+        show_residuals_vectorfield=lambda **kw: of_solve(
+            mrcal.show_residuals_vectorfield, **kw),
+        show_residuals_magnitudes=lambda **kw: of_solve(
+            mrcal.show_residuals_magnitudes, **kw),
+        show_residuals_directions=lambda **kw: of_solve(
+            mrcal.show_residuals_directions, **kw),
+        show_residuals_histogram=lambda **kw: of_solve(
+            mrcal.show_residuals_histogram, **kw),
+        show_residuals_regional=lambda **kw: of_solve(
+            mrcal.show_residuals_regional, **kw),
+        show_residuals_board_observation=lambda i, **kw: of_solve(
+            mrcal.show_residuals_board_observation, i, **kw),
+        show_residuals_board_observation_worst=lambda i, **kw: of_solve(
+            mrcal.show_residuals_board_observation, i, from_worst=True,
+            **kw),
+    )
+
+
+def explore(models, optimization_inputs, stats, paths, device):
+    """The interactive shell of --explore, on explore_namespace()."""
+    ns = explore_namespace(models, optimization_inputs, stats, paths,
+                           device)
+    banner = ("\n== mrcal explore shell ==\n"
+              "in scope: models, optimization_inputs, stats, paths, and\n"
+              "  " + ", ".join(k for k in ns
+                               if k.startswith("show_")) + "\n")
+    try:
+        import IPython
+        IPython.embed(banner1=banner, user_ns=ns)
+    except ImportError:
+        import code
+        code.interact(banner=banner, local=ns)
 
 
 if __name__ == "__main__":

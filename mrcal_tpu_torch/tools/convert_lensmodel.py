@@ -12,8 +12,9 @@ mrcal-convert-lensmodel).  Two modes, like the reference:
    comma-separated list (a near AND a far distance constrain the
    extrinsics, reference :63-76); --num-trials re-runs the sampled solve
    from random seeds and keeps the best (reference :79-82).
-The solves run on the CUDA card (device="cpu" from Python runs them on the
-CPU); --viz is not in the port yet (the tool exits nonzero).
+--viz draws the projection difference between the old and the new model
+(mrcal_tpu_torch.show_projection_diff).  The solves and the difference
+run on the CUDA card (device="cpu" from Python runs them on the CPU).
 
     python -m mrcal_tpu_torch.tools.convert_lensmodel \\
         --outfile camera-0-opencv4.cameramodel LENSMODEL_OPENCV4 \\
@@ -27,7 +28,7 @@ import sys
 import numpy as np
 
 from .._config import resolve_device
-from ._common import host, refuse_drawing
+from ._common import host
 
 
 def parse_args(argv=None):
@@ -62,8 +63,7 @@ def parse_args(argv=None):
                         "one (exclusive with --monocular).  Output files are "
                         "named <model>-<icam>-<lensmodel_to>.cameramodel")
     p.add_argument("--viz", action="store_true",
-                   help="show a projection-diff plot of old vs new model "
-                        "(not in the port yet: the tool exits nonzero)")
+                   help="show a projection-diff plot of old vs new model")
     p.add_argument("--cbmax", type=float, default=4.0,
                    help="--viz colorbar maximum")
     p.add_argument("--title", default=None, help="--viz plot title")
@@ -194,8 +194,6 @@ def main(argv=None, *, device=None):
     """The tool on `argv`, on `device` (the card unless "cpu").  Returns
     dict(model, optimization_inputs, rms) of the conversion."""
     a = parse_args(argv)
-    if a.viz:
-        refuse_drawing("--viz")
     device = resolve_device(device)
     import mrcal_tpu_torch as mrcal
 
@@ -228,6 +226,11 @@ def main(argv=None, *, device=None):
         m_out = mrcal.cameramodel(optimization_inputs=oi,
                                   icam_intrinsics=icam)
         m_out.extrinsics_rt_fromref(m.extrinsics_rt_fromref())
+
+    if a.viz:
+        mrcal.show_projection_diff((m, m_out), distance=None, cbmax=a.cbmax,
+                                   title=a.title, hardcopy=a.hardcopy,
+                                   device=device)
 
     def write_model(model, path):
         if path == "-":

@@ -5,9 +5,10 @@ The port of tools/mrcal-stereo (reference: mrcal-stereo).  Pipeline:
 rectified_system -> rectification_maps -> transform_image -> disparity
 (the port's census+SGM matcher by default; OpenCV SGBM via --matcher
 sgbm, which needs cv2) -> stereo_range -> outputs (rectified, disparity
-and range images, optional point cloud).  Everything but SGBM and the
-image files runs on the CUDA card (device="cpu" from Python runs it on the
-CPU); --viz is not in the port yet (the tool exits nonzero).
+and range images, optional point cloud); or, with --viz, a diagnostic
+plot of the rectified geometry drawn by matplotlib.  Everything but SGBM,
+the image files and the drawing runs on the CUDA card (device="cpu" from
+Python runs it on the CPU).
 
     python -m mrcal_tpu_torch.tools.stereo --az-fov-deg 50 \\
         --el-fov-deg 40 --disparity-range 0 127 --range-image \\
@@ -21,7 +22,7 @@ import sys
 import numpy as np
 
 from .._config import resolve_device
-from ._common import host, refuse_drawing
+from ._common import host
 
 
 def parse_args(argv=None):
@@ -110,8 +111,9 @@ def parse_args(argv=None):
     p.add_argument("--viz", choices=["geometry", "rectification"],
                    default=None,
                    help="write a diagnostic plot instead of running the "
-                        "full pipeline (not in the port yet: the tool "
-                        "exits nonzero)")
+                        "full pipeline: 'geometry' (cameras + rectified "
+                        "pair in 3D), 'rectification' (the rectified "
+                        "field of view over each input image)")
     p.add_argument("--roi", type=int, nargs=4, default=None,
                    metavar=("X0", "Y0", "W", "H"),
                    help="only correlate this rectangle of the rectified "
@@ -149,6 +151,68 @@ def disparity_sgbm(rect0, rect1, args):
     return sgbm.compute(rect0, rect1)   # int16, x16 scale
 
 
+def rectify(models, args, device):
+    """The rectified system of the options: (rect_models, metadata)."""
+    import mrcal_tpu_torch as mrcal
+    return mrcal.rectified_system(
+        models, az_fov_deg=args.az_fov_deg, el_fov_deg=args.el_fov_deg,
+        az0_deg=args.az0_deg, el0_deg=args.el0_deg,
+        az_edge_margin_deg=args.az_edge_margin_deg,
+        pixels_per_deg_az=args.pixels_per_deg,
+        pixels_per_deg_el=args.pixels_per_deg,
+        rectification_model=args.rectification,
+        return_metadata=True, device=device)
+
+
+def report_rectification(meta):
+    print(f"## baseline {meta['baseline']:.4f}; "
+          f"az0 {meta['az0_deg']:.2f} deg; "
+          f"{meta['pixels_per_deg_az']:.2f} px/deg")
+
+
+def viz(models, args, device, check_overwrite):
+    """--viz: the rectified system, then its plot written to --hardcopy
+    (OUTDIR/TAG-geometry.png or OUTDIR/TAG-rectification.png by default):
+    'geometry' the two cameras and the rectified pair in 3D,
+    'rectification' every 20th rectified pixel's position in each input
+    image.  Returns dict(rect_models, meta, hardcopy)."""
+    import mrcal_tpu_torch as mrcal
+    rect_models, meta = rectify(models, args, device)
+    report_rectification(meta)
+    if args.viz == "geometry":
+        out = check_overwrite(args.hardcopy or
+                              f"{args.outdir}/{args.tag}-geometry.png")
+        mrcal.show_geometry(list(models) + list(rect_models),
+                            cameranames=["cam0", "cam1", "rect0", "rect1"],
+                            axis_scale=(args.axis_scale if args.axis_scale
+                                        is not None
+                                        else float(meta["baseline"])),
+                            title=args.title or "stereo geometry",
+                            hardcopy=out, device=device)
+    else:
+        maps = [host(m) for m in mrcal.rectification_maps(
+            models, rect_models, device=device)]
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig, axs = plt.subplots(1, 2, figsize=(12, 5))
+        for i in range(2):
+            img = mrcal.load_image(args.images[i], bits_per_pixel=8,
+                                   channels=1)
+            m = maps[i]                        # (H,W,2) input-pixel coords
+            axs[i].imshow(np.asarray(img), cmap="gray")
+            axs[i].plot(m[::20, ::20, 0].ravel(), m[::20, ::20, 1].ravel(),
+                        ".", ms=1, color="red", alpha=0.5)
+            axs[i].set_title(f"camera {i}: rectified grid")
+        if args.title:
+            fig.suptitle(args.title)
+        out = check_overwrite(
+            args.hardcopy or f"{args.outdir}/{args.tag}-rectification.png")
+        fig.savefig(out, dpi=120)
+    print(f"## wrote {out}")
+    return dict(rect_models=rect_models, meta=meta, hardcopy=out)
+
+
 def stereo(models, images, args, device):
     """mrcal-stereo's computation on arrays: the two models, the two 8-bit
     grayscale images (already rectified with --already-rectified) and the
@@ -165,14 +229,7 @@ def stereo(models, images, args, device):
         if args.verbose:
             print(f"## {msg}", file=sys.stderr)
 
-    rect_models, meta = mrcal.rectified_system(
-        models, az_fov_deg=args.az_fov_deg, el_fov_deg=args.el_fov_deg,
-        az0_deg=args.az0_deg, el0_deg=args.el0_deg,
-        az_edge_margin_deg=args.az_edge_margin_deg,
-        pixels_per_deg_az=args.pixels_per_deg,
-        pixels_per_deg_el=args.pixels_per_deg,
-        rectification_model=args.rectification,
-        return_metadata=True, device=device)
+    rect_models, meta = rectify(models, args, device)
     if args.already_rectified:
         rectified = [np.asarray(im) for im in images]
     else:
@@ -259,10 +316,8 @@ def stereo(models, images, args, device):
 
 def main(argv=None, *, device=None):
     """The tool on `argv`, on `device` (the card unless "cpu").  Returns
-    stereo()'s dict."""
+    stereo()'s dict (viz()'s with --viz)."""
     args = parse_args(argv)
-    if args.viz is not None:
-        refuse_drawing(f"--viz {args.viz}")
     device = resolve_device(device)
     import mrcal_tpu_torch as mrcal
 
@@ -274,13 +329,12 @@ def main(argv=None, *, device=None):
         return path
 
     models = [mrcal.cameramodel(f) for f in args.models]
+    if args.viz is not None:
+        return viz(models, args, device, check_overwrite)
     images = [mrcal.load_image(f, bits_per_pixel=8, channels=1)
               for f in args.images]
     out = stereo(models, images, args, device)
-    meta = out["meta"]
-    print(f"## baseline {meta['baseline']:.4f}; "
-          f"az0 {meta['az0_deg']:.2f} deg; "
-          f"{meta['pixels_per_deg_az']:.2f} px/deg")
+    report_rectification(out["meta"])
     if not args.already_rectified:
         for i in range(2):
             mrcal.save_image(

@@ -9,7 +9,8 @@ noise, calibration yaw/pitch, and baseline translation — with linearized
 corrections that would explain an observed range error.  The projections,
 the triangulation and its uncertainty run on the CUDA card (device="cpu"
 from Python runs them on the CPU); the optimized corrections are scipy's
-on the host; --viz is not in the port yet (the tool exits nonzero).
+on the host; --viz uncertainty draws the uncertainty ellipses with
+matplotlib.
 
     python -m mrcal_tpu_torch.tools.triangulate \\
         --q-calibration-stdev 0.3 --q-observation-stdev 0.3 \\
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from .._config import resolve_device
-from ._common import host, refuse_drawing
+from ._common import host
 
 
 def parse_args(argv=None):
@@ -63,7 +64,7 @@ def parse_args(argv=None):
                    help="text appended to the default --viz plot title")
     p.add_argument("--viz", choices=["uncertainty"], default=None,
                    help="write an uncertainty-ellipse plot "
-                        "(not in the port yet: the tool exits nonzero)")
+                        "(triangulate-uncertainty.png)")
     p.add_argument("--hardcopy", default=None,
                    help="--viz output filename")
     p.add_argument("--make-corrected-model1", action="store_true",
@@ -310,15 +311,56 @@ def report(models, q0, q1, a, device):
         print("## Optimized relative yaw (1 <- 0): "
               f"{np.degrees(rt10c[1]):.3f} degrees")
         out.update(dyaw=dyaw, dpitch=dpitch, rt10_corrected=rt10c)
+
+    if a.viz == "uncertainty":
+        draw_uncertainty(a, None if Var_cal is None else host(Var_cal),
+                         None if Var_obs is None else host(Var_obs), range0)
     return out
+
+
+def draw_uncertainty(a, Var_cal, Var_obs, range0):
+    """--viz uncertainty: the calibration-time and observation-time 1-sigma
+    ellipses of the point (its covariances projected onto the plane of
+    their two largest axes), written to --hardcopy
+    (triangulate-uncertainty.png by default); without a covariance, a
+    warning and no file."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots(figsize=(6, 5))
+    drew = False
+    for what, V, color in (("calibration", Var_cal, "C0"),
+                           ("observation", Var_obs, "C1")):
+        if V is None:
+            continue
+        l, vecs = np.linalg.eigh(V)
+        th = np.linspace(0, 2 * np.pi, 200)
+        circ = np.stack([np.cos(th), np.sin(th)])
+        e2 = vecs[:, -2:] @ (np.sqrt(np.maximum(l[-2:], 0))[:, None] * circ)
+        ax.plot(e2[0], e2[1], color=color, label=f"{what}-time 1-sigma")
+        drew = True
+    if drew:
+        title = a.title or f"Triangulation uncertainty at {range0:.1f} m"
+        if a.extratitle:
+            title += f": {a.extratitle}"
+        ax.set_title(title)
+        ax.set_xlabel("m")
+        ax.set_ylabel("m")
+        ax.legend()
+        ax.set_aspect("equal")
+        out = a.hardcopy or "triangulate-uncertainty.png"
+        fig.savefig(out, dpi=120)
+        print(f"## wrote {out}")
+    else:
+        print("## WARNING: don't have any ellipses, so not "
+              "visualizing them (pass --q-calibration-stdev / "
+              "--q-observation-stdev)")
 
 
 def main(argv=None, *, device=None):
     """The tool on `argv`, on `device` (the card unless "cpu").  Returns
     report()'s dict."""
     a = parse_args(argv)
-    if a.viz is not None:
-        refuse_drawing(f"--viz {a.viz}")
     device = resolve_device(device)
     import mrcal_tpu_torch as mrcal
 

@@ -854,3 +854,353 @@ def run_jax_tools(runs):
     jit_jax_unproject()
     return [run_tool("jax", name, argv, stdin)[:3]
             for name, argv, stdin in runs]
+
+
+# ----------------------------------------------------------------------------
+# tests/test_torch_visualization.py, tests/test_torch_tools_show.py and the
+# drawing options of the tools
+# ----------------------------------------------------------------------------
+
+def _plain(x):
+    """An artist's number or array as a float64 array (None and masked
+    entries NaN)."""
+    if x is None:
+        return np.array(np.nan)
+    if isinstance(x, np.ma.MaskedArray):
+        x = np.ma.filled(x.astype(np.float64), np.nan)
+    return np.array(x, dtype=np.float64)
+
+
+def figure_contents(fig):
+    """What a matplotlib figure shows, as strings and float64 arrays: for
+    each axes its title, axis labels and limits, images (array, extent,
+    clim), lines (data, label, color, marker, style), collections
+    (offsets, color arrays and clim, a quiver's U and V, a contour set's
+    levels), patches (a histogram's bars: x, width, height), texts (text
+    and position) and legend entries; and the figure's suptitle.  A
+    colorbar is an axes of its own, its limits the colorbar's."""
+    from matplotlib.colors import to_rgba
+    from matplotlib.contour import ContourSet
+    from matplotlib.quiver import Quiver
+    out = dict(suptitle=fig._suptitle.get_text() if fig._suptitle else "",
+               axes=[])
+    for ax in fig.axes:
+        a = dict(label=ax.get_label(), title=ax.get_title(),
+                 xlabel=ax.get_xlabel(), ylabel=ax.get_ylabel(),
+                 xlim=_plain(ax.get_xlim()), ylim=_plain(ax.get_ylim()))
+        if hasattr(ax, "get_zlim"):
+            a.update(zlabel=ax.get_zlabel(), zlim=_plain(ax.get_zlim()))
+        a["images"] = [dict(array=_plain(im.get_array()),
+                            extent=_plain(im.get_extent()),
+                            clim=_plain([_plain(c) for c in im.get_clim()]))
+                       for im in ax.images]
+        a["lines"] = [dict(
+            data=_plain(line.get_data_3d() if hasattr(line, "get_data_3d")
+                        else line.get_xydata()),
+            label=line.get_label(), color=_plain(to_rgba(line.get_color())),
+            marker=str(line.get_marker()), linestyle=line.get_linestyle())
+            for line in ax.lines]
+        collections = []
+        for c in ax.collections:
+            d = dict(kind=type(c).__name__, offsets=_plain(c.get_offsets()),
+                     array=_plain(c.get_array()),
+                     clim=_plain([_plain(v) for v in c.get_clim()]))
+            if isinstance(c, Quiver):
+                d.update(U=_plain(c.U), V=_plain(c.V))
+            if isinstance(c, ContourSet):
+                d.update(levels=_plain(c.levels))
+            collections.append(d)
+        a["collections"] = collections
+        a["patches"] = dict(
+            x=_plain([p.get_x() for p in ax.patches]),
+            width=_plain([p.get_width() for p in ax.patches]),
+            height=_plain([p.get_height() for p in ax.patches]))
+        a["texts"] = [dict(text=t.get_text(), position=_plain(
+            t.get_position_3d() if hasattr(t, "get_position_3d")
+            else t.get_position())) for t in ax.texts]
+        legend = ax.get_legend()
+        a["legend"] = ([t.get_text() for t in legend.get_texts()]
+                       if legend is not None else [])
+        out["axes"].append(a)
+    return out
+
+
+def close_figures():
+    import matplotlib.pyplot as plt
+    plt.close("all")
+
+
+def viz_solved_scene():
+    """tests/test_visualization.py's scene: make_scene(Ncameras=2,
+    Nframes=8) with 0.2 px of noise, solved by the JAX package (outlier
+    rejection on), and then three corners marked as outliers for the plots
+    to show.  Returns (the solved optimization_inputs, numpy; the
+    residuals x there)."""
+    import mrcal_tpu as mrcal
+    from test_calibration import make_scene, optimization_inputs_from_scene
+    scene = make_scene(Ncameras=2, Nframes=8)
+    oi = {k: v for k, v in
+          optimization_inputs_from_scene(scene, perturb=False).items()
+          if v is not None}
+    np.random.seed(2)
+    oi["observations_board"][..., :2] += \
+        np.random.randn(*oi["observations_board"][..., :2].shape) * 0.2
+    mrcal.optimize(**oi)
+    oi = {k: (v if isinstance(v, (str, bool, int, float)) else np.array(v))
+          for k, v in oi.items()}
+    for i, y, x in ((3, 2, 4), (3, 5, 7), (10, 0, 0)):
+        oi["observations_board"][i, y, x, 2] = -1.0
+    _, x, _ = mrcal.optimizer_callback(no_jacobian=True, **oi)
+    return oi, np.array(x)
+
+
+VIZ_SPLINED = "LENSMODEL_SPLINED_STEREOGRAPHIC_order=3_Nx=9_Ny=7_fov_x_deg=120"
+VIZ_REGION = np.array([[10, 10], [700, 10], [700, 500], [10, 500], [10, 10]],
+                      dtype=float)
+
+
+def viz_objects(mrcal, oi, x, directory):
+    """The inputs of the cases, built by `mrcal` (either package) from the
+    solved scene: its two cameras m0 and m1, copies of them with a
+    valid-intrinsics region (m0r, m1r), a 9 x 7-knot splined model of 800
+    x 600 (test_visualization.py's), the residuals x, the board image
+    <directory>/board.png, and camera 0's valid region drawn into a gray
+    and a BGR image."""
+    m0 = mrcal.cameramodel(optimization_inputs=oi, icam_intrinsics=0)
+    m1 = mrcal.cameramodel(optimization_inputs=oi, icam_intrinsics=1)
+    m1.extrinsics_rt_fromref(oi["extrinsics_rt_fromref"][0])
+    regions = []
+    for m in (m0, m1):
+        r = mrcal.cameramodel(m)
+        r.valid_intrinsics_region(VIZ_REGION)
+        regions.append(r)
+    rng = np.random.default_rng(0)
+    intr = np.concatenate([[420., 419., 399.5, 299.5],
+                           rng.normal(size=2 * 9 * 7) * 2e-3])
+    splined = mrcal.cameramodel(intrinsics=(VIZ_SPLINED, intr),
+                                imagersize=(800, 600))
+    return dict(m0=m0, m1=m1, m0r=regions[0], m1r=regions[1], oi=oi, x=x,
+                splined=splined, image=os.path.join(directory, "board.png"),
+                gray=np.full((600, 800), 128, np.uint8),
+                bgr=np.zeros((600, 800, 3), np.uint8),
+                paths=[os.path.join(directory, "board.png")]
+                * len(oi["observations_board"]))
+
+
+_RT_PLOT_REF = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0],
+                         [0.0, 0.0, 1.0], [0.1, -0.2, 0.3]])
+_RT10 = np.array([[1.0, 0.002, -0.001], [-0.002, 1.0, 0.003],
+                  [0.001, -0.003, 1.0], [0.0, 0.0, 0.0]])
+_POINTS = np.array([[0.1, 0.2, 1.5], [-0.3, 0.1, 2.0], [0.0, -0.2, 1.2]])
+
+# name -> (function of the package's top level, arguments, keywords);
+# "@name" is viz_objects' object of that name.  The grids are small, and
+# most share one shape, 12 x 9 (the JAX package compiles each new
+# shape).
+VIZ_CASES = {
+    "geometry": ("show_geometry", (["@m0", "@m1"],), {}),
+    "geometry_thiscamera": ("show_geometry", (["@m1", "@m0"],), dict(
+        show_calobjects="thiscamera", extratitle="opts", point_labels={},
+        cameras_Rt_plot_ref=_RT_PLOT_REF, cameranames=["left", "right"])),
+    "geometry_fromsolve": ("show_geometry", (["@m1"],),
+                           dict(icam_extrinsics_fromsolve="all")),
+    "geometry_given": ("show_geometry", (), dict(
+        models_or_extrinsics_rt_fromref=[np.zeros(6),
+                                         np.array([0.01, -0.02, 0.005,
+                                                   -0.22, 0.02, 0.01])],
+        rt_ref_frame="@frames", object_width_n=8, object_height_n=6,
+        object_spacing=0.077, points=_POINTS, point_labels={0: "p0", 2: 7},
+        axis_scale=0.05, title="given", xlabel="X", zlabel="Z")),
+    "diff": ("show_projection_diff", (("@m0r", "@m1r"),), dict(
+        gridn_width=12, observations=True, contours=True,
+        valid_intrinsics_region=True)),
+    "diff_vectorfield": ("show_projection_diff", (("@m0", "@m1"),), dict(
+        gridn_width=12, vectorfield=True, vectorscale=5.0,
+        extratitle="vf")),
+    "diff_directions": ("show_projection_diff", (("@m0", "@m1"),), dict(
+        gridn_width=12, directions=True, implied_Rt10=_RT10)),
+    "diff_contour_increment": ("show_projection_diff", (("@m0", "@m1"),),
+                               dict(gridn_width=12, contour_increment=0.5,
+                                    contour_labels_font=",9", cbmax=2,
+                                    title="diff", extratitle="contours")),
+    "diff_three": ("show_projection_diff", (("@m0", "@m1", "@m0r"),),
+                   dict(gridn_width=12, intrinsics_only=False)),
+    "diff_intrinsics_only": ("show_projection_diff", (("@m0", "@m1"),),
+                             dict(gridn_width=12, gridn_height=9,
+                                  intrinsics_only=True, cbmax=50)),
+    "diff_1m": ("show_projection_diff", (("@m0", "@m1"),),
+                dict(gridn_width=12, distance=1.0)),
+    "uncertainty": ("show_projection_uncertainty", ("@m0",), dict(
+        gridn_width=12, distance=2.0, observed_pixel_uncertainty=0.2)),
+    "uncertainty_overlays": ("show_projection_uncertainty", ("@m0r",), dict(
+        gridn_width=12, isotropic=True, observations=True,
+        valid_intrinsics_region=True, contours=True, cbmax=1,
+        extratitle="overlays")),
+    "uncertainty_vs_distance": ("show_projection_uncertainty_vs_distance",
+                                ("@m0",), dict(distance_min=0.5,
+                                               distance_max=10,
+                                               Ndistances=6)),
+    "uncertainty_vs_distance_iso": (
+        "show_projection_uncertainty_vs_distance", ("@m1",),
+        dict(where=(400.0, 300.0), isotropic=True, Ndistances=6,
+             observed_pixel_uncertainty=0.2)),
+    "uncertainty_vs_distance_center": (
+        "show_projection_uncertainty_vs_distance", ("@m0",),
+        dict(where="center", Ndistances=6, title="center")),
+    "distortion": ("show_distortion_off_pinhole", ("@m0",),
+                   dict(gridn_width=12)),
+    "distortion_vectorfield": ("show_distortion_off_pinhole", ("@m1",),
+                               dict(gridn_width=12, vectorfield=True,
+                                    vectorscale=3, extratitle="vs")),
+    "radial": ("show_distortion_off_pinhole_radial", ("@m0",), {}),
+    "radial_fisheye": ("show_distortion_off_pinhole_radial", ("@m1",),
+                       dict(show_fisheye_projections=True)),
+    "valid_region": ("show_valid_intrinsics_region", ("@m0r",), {}),
+    "valid_regions": ("show_valid_intrinsics_region", (["@m0r", "@m1"],),
+                      dict(image="@image", points=_POINTS[:, :2] * 300,
+                           cameranames=["a", "b"], extratitle="two")),
+    "splined": ("show_splined_model_correction", ("@splined",),
+                dict(gridn_width=12)),
+    "splined_x_u": ("show_splined_model_correction", ("@splined",),
+                    dict(gridn_width=12, xy="x", imager_domain=False,
+                         extratitle="x surface in u")),
+    "splined_vectorfield": ("show_splined_model_correction", ("@splined",),
+                            dict(gridn_width=12, vectorfield=True,
+                                 vectorscale=10, xy="y")),
+    "board_observation": ("show_residuals_board_observation", ("@oi", 3),
+                          {}),
+    "board_observation_worst": ("show_residuals_board_observation",
+                                ("@oi", 0), dict(from_worst=True, cbmax=2.0,
+                                                 paths="@paths")),
+    "board_observation_sorted": ("show_residuals_board_observation",
+                                 ("@oi", 1),
+                                 dict(i_observations_sorted_from_worst=[
+                                     5, 2], x="@x", circlescale=2.0)),
+    "histogram": ("show_residuals_histogram", ("@oi", 0), {}),
+    "histogram_model": ("show_residuals_histogram", ("@m1r",),
+                        dict(binwidth=0.05, extratitle="model-first")),
+    "vectorfield": ("show_residuals_vectorfield", ("@oi",), {}),
+    "vectorfield_model": ("show_residuals_vectorfield", ("@m0r",),
+                          dict(x="@x", cbmax=2, extratitle="model-first")),
+    "magnitudes": ("show_residuals_magnitudes", ("@oi",),
+                   dict(icam_intrinsics=1)),
+    "magnitudes_model": ("show_residuals_magnitudes", ("@m0r",),
+                         dict(residuals="@x", cbmax=1.0)),
+    "directions": ("show_residuals_directions", ("@m1r",),
+                   dict(valid_intrinsics_region=False)),
+    "regional": ("show_residuals_regional", ("@oi",), dict(gridn_width=8)),
+    "regional_model": ("show_residuals_regional", ("@m0r",),
+                       dict(gridn_width=6, gridn_height=5)),
+    "stereo_pair_diff": ("show_stereo_pair_diff",
+                         ((("@m0", "@m1"), ("@m0", "@m1r")),),
+                         dict(gridn_width=12)),
+    "stereo_pair_diff_vectorfield": (
+        "show_stereo_pair_diff", ((("@m0", "@m1"), ("@m1", "@m0")),),
+        dict(gridn_width=12, vectorfield=True, distance=3.0,
+             observations=True, valid_intrinsics_region=True,
+             extratitle="vf")),
+}
+
+
+def viz_resolve(arg, objects):
+    """A case's argument with its "@name" placeholders replaced."""
+    if isinstance(arg, str) and arg.startswith("@"):
+        if arg == "@frames":
+            return objects["oi"]["frames_rt_toref"]
+        return objects[arg[1:]]
+    if isinstance(arg, (list, tuple)):
+        return type(arg)(viz_resolve(a, objects) for a in arg)
+    if isinstance(arg, dict):
+        return {k: viz_resolve(v, objects) for k, v in arg.items()}
+    return arg
+
+
+def viz_call(mrcal, case, objects, **extra):
+    """One case by `mrcal`'s function (extra: device="cpu" for the port):
+    (figure_contents of its figure, the array it returns beside the figure
+    or None).  The figure is closed."""
+    fn, args, kw = case
+    out = getattr(mrcal, fn)(*viz_resolve(args, objects),
+                             **viz_resolve(kw, objects), **extra)
+    fig, array = out if isinstance(out, tuple) else (out, None)
+    try:
+        return figure_contents(fig), (None if array is None
+                                      else np.array(array, np.float64))
+    finally:
+        close_figures()
+
+
+def viz_references(oi, x, directory, names):
+    """The JAX package's cases `names`: {name: viz_call's result}; and
+    under "board_residuals" visualization._board_residuals of the scene,
+    every camera."""
+    import mrcal_tpu as mrcal
+    import mrcal_tpu.visualization
+    share_jax_evaluations()
+    objects = viz_objects(mrcal, oi, x, directory)
+    out = {name: viz_call(mrcal, VIZ_CASES[name], objects)
+           for name in names}
+    if "histogram" in names:
+        out["board_residuals"] = tuple(
+            np.array(a) for a in mrcal_tpu.visualization._board_residuals(oi))
+    return out
+
+
+def viz_explore_references(oi, directory, calls):
+    """The JAX package's show_* on the models of a solve, as the JAX
+    mrcal-calibrate-cameras --explore shell calls them: calls [(name in
+    the shell, function, target, arguments, keywords)], target "models"
+    (the function of every model), "camera <i>" (of model i, with the
+    shell's title) or "oi" (of the optimization_inputs); "{directory}" in
+    a keyword is `directory`, and a shell name ending in _worst adds
+    from_worst=True.  Returns [figure_contents] in order."""
+    import mrcal_tpu as mrcal
+    share_jax_evaluations()
+    models = [mrcal.cameramodel(optimization_inputs=oi, icam_intrinsics=i)
+              for i in range(len(oi["intrinsics"]))]
+    for i, m in enumerate(models[1:]):
+        m.extrinsics_rt_fromref(oi["extrinsics_rt_fromref"][i])
+    out = []
+    for shell_name, name, target, args, kw in calls:
+        fn = getattr(mrcal, name)
+        kw = {k: v.format(directory=directory) if isinstance(v, str) else v
+              for k, v in kw.items()}
+        if shell_name.endswith("_worst"):
+            kw["from_worst"] = True
+        if target == "models":
+            fig = fn(models, *args, **kw)
+        elif target == "oi":
+            fig = fn(oi, *args, **kw)
+        else:
+            i = int(target.split()[1])
+            fig = fn(models[i], *args, title=f"{name} camera {i}", **kw)
+        out.append(figure_contents(fig[0] if isinstance(fig, tuple)
+                                   else fig))
+        close_figures()
+    return out
+
+
+def run_jax_show_tools(runs):
+    """The JAX package's scripts on runs [(name, argv, stdin)], as
+    run_jax_tools, with figure_contents of each figure a script saves
+    (matplotlib's Figure.savefig wrapped): [(exit code, stdout, stderr,
+    [figure_contents])]."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.figure
+    saved = []
+    savefig = matplotlib.figure.Figure.savefig
+
+    def recording_savefig(self, *args, **kw):
+        saved.append(figure_contents(self))
+        return savefig(self, *args, **kw)
+    matplotlib.figure.Figure.savefig = recording_savefig
+    jit_jax_unproject()
+    share_jax_evaluations()
+    out = []
+    for name, argv, stdin in runs:
+        del saved[:]
+        out.append(tuple(run_tool("jax", name, argv, stdin)[:3])
+                   + (list(saved),))
+        close_figures()
+    return out

@@ -2,15 +2,17 @@
 the multi-device package, the uncertainty modules, the .cahvor format,
 utils, synthetic_data, the calibration front end (image, detector,
 calibration), dense stereo (image_transforms, stereo, stereo_sgm),
-profiling and every command-line tool included, and building the splined
-bench problem) loads neither jax nor mrcal_tpu, and no module of the port
-(nor chip_smoke.py) imports either.  The public entry points of the
-projection, utils, uncertainty, image, detector, calibration and
-dense-stereo modules, and every tool's main, run on the card unless told
-otherwise, and the top level exports every dense-stereo name of the JAX
-package with its signature, plus device.  Every JAX script that draws
-nothing has its module in mrcal_tpu_torch.tools, which runs with python
--m and has no CPU fallback."""
+profiling, visualization and every command-line tool included, and
+building the splined bench problem) loads neither jax, mrcal_tpu nor
+matplotlib, and no module of the port (nor chip_smoke.py) imports jax or
+mrcal_tpu.  The public entry points of the projection, utils,
+uncertainty, image, detector, calibration, dense-stereo and
+visualization modules, and every tool's main, run on the card unless told
+otherwise, and the top level exports every dense-stereo and visualization
+name of the JAX package with its signature, plus device (the three host
+helpers of visualization exactly the JAX signature).  Every JAX script
+has its module in mrcal_tpu_torch.tools, which runs with python -m and
+has no CPU fallback."""
 
 import ast
 import os
@@ -32,11 +34,10 @@ def _port_sources():
     return sorted(out)
 
 
-# the JAX package's scripts that draw nothing, and the port's module of
-# each (tools/mrcal-calibrate-cameras -> calibrate_cameras)
+# the JAX package's scripts, and the port's module of each
+# (tools/mrcal-calibrate-cameras -> calibrate_cameras)
 JAX_TOOLS = sorted(f[len("mrcal-"):] for f in os.listdir(os.path.join(
-    ROOT, "tools")) if f.startswith("mrcal-")
-    and not f.startswith("mrcal-show-"))
+    ROOT, "tools")) if f.startswith("mrcal-"))
 TOOL_MODULES = [t.replace("-", "_") for t in JAX_TOOLS]
 
 
@@ -57,7 +58,7 @@ def test_import_loads_no_jax():
             "mrcal_tpu_torch.image, mrcal_tpu_torch.detector, "
             "mrcal_tpu_torch.calibration, mrcal_tpu_torch.image_transforms, "
             "mrcal_tpu_torch.stereo, mrcal_tpu_torch.stereo_sgm, "
-            "mrcal_tpu_torch.profiling, "
+            "mrcal_tpu_torch.profiling, mrcal_tpu_torch.visualization, "
             + "".join(f"mrcal_tpu_torch.tools.{m}, " for m in TOOL_MODULES)
             + "mrcal_tpu_torch.tools; "
             "from mrcal_tpu_torch.lensmodels import splined_deltau; "
@@ -67,7 +68,7 @@ def test_import_loads_no_jax():
             "optimizer_callback; "
             "mrcal_tpu_torch.problems.splined_30x18(); "
             "bad = sorted(m for m in set(sys.modules) - before "
-            f"if m.split('.')[0] in {FORBIDDEN!r}); "
+            f"if m.split('.')[0] in {FORBIDDEN + ('matplotlib',)!r}); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -126,7 +127,45 @@ def _entry_point_calls():
                               device="cpu")
     stereo_images = [np.roll(board_image[:24, :32], s, axis=1)
                      for s in (0, -3)]
-    return {
+    splined = m.cameramodel(
+        intrinsics=("LENSMODEL_SPLINED_STEREOGRAPHIC_order=3_Nx=9_Ny=7_"
+                    "fov_x_deg=120", np.r_[420., 419., 399.5, 299.5,
+                                           np.zeros(2 * 9 * 7)]),
+        imagersize=(800, 600))
+
+    def closing(show):
+        """show, its figures closed after the call."""
+        def call(*args, **kw):
+            try:
+                return show(*args, **kw)
+            finally:
+                import matplotlib.pyplot as plt
+                plt.close("all")
+        return call
+
+    grid4 = dict(gridn_width=4)
+    shows = {
+        "show_geometry": (([model],), {}),
+        "show_projection_diff": (([model, model],), grid4),
+        "show_projection_uncertainty": ((model,), grid4),
+        "show_projection_uncertainty_vs_distance": ((model,),
+                                                    dict(Ndistances=3)),
+        "show_distortion_off_pinhole": ((model,), grid4),
+        "show_distortion_off_pinhole_radial": ((model,), {}),
+        "show_valid_intrinsics_region": ((model,), {}),
+        "show_splined_model_correction": ((splined,), grid4),
+        "show_residuals_board_observation": ((oi, 0), {}),
+        "show_residuals_histogram": ((oi,), {}),
+        "show_residuals_vectorfield": ((model,), {}),
+        "show_residuals_magnitudes": ((model,), {}),
+        "show_residuals_directions": ((model,), {}),
+        "show_residuals_regional": ((model,), {}),
+        "show_stereo_pair_diff": (([(model, model), (model, model)],),
+                                  grid4),
+    }
+    calls = {name: (closing(getattr(m, name)), args, kw)
+             for name, (args, kw) in shows.items()}
+    return calls | {
         "scale_focal__best_pinhole_fit": (m.scale_focal__best_pinhole_fit,
                                           (model, "corners")),
         "pinhole_model_for_reprojection": (
@@ -256,7 +295,17 @@ ENTRY_POINTS = ["project", "unproject", "project_pinhole",
                 "transform_image", "rectified_resolution", "rectified_system",
                 "rectification_maps", "stereo_range", "stereo_unproject",
                 "match_feature", "stereo_matching_ncc",
-                "stereo_matching_sgm"]
+                "stereo_matching_sgm", "show_geometry",
+                "show_projection_diff", "show_projection_uncertainty",
+                "show_projection_uncertainty_vs_distance",
+                "show_distortion_off_pinhole",
+                "show_distortion_off_pinhole_radial",
+                "show_valid_intrinsics_region",
+                "show_splined_model_correction",
+                "show_residuals_board_observation",
+                "show_residuals_histogram", "show_residuals_vectorfield",
+                "show_residuals_magnitudes", "show_residuals_directions",
+                "show_residuals_regional", "show_stereo_pair_diff"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -293,24 +342,54 @@ def test_dense_stereo_exports_cover_the_jax_package():
     assert len(DENSE_STEREO) == 12
 
 
-@pytest.mark.parametrize("name", DENSE_STEREO)
-def test_dense_stereo_export_matches_jax_signature(name):
-    """Every dense-stereo name of the JAX package's top level is the
-    port's too, with the JAX signature plus a keyword-only device."""
+def _assert_signature(name, device=True):
+    """The port's top-level `name` has the JAX package's signature, plus
+    a keyword-only device=None if `device`."""
     import inspect
     import mrcal_tpu
     import mrcal_tpu_torch
     want = inspect.signature(getattr(mrcal_tpu, name)).parameters
     got = dict(inspect.signature(getattr(mrcal_tpu_torch, name)).parameters)
-    device = got.pop("device")
-    assert device.kind is inspect.Parameter.KEYWORD_ONLY
-    assert device.default is None
+    if device:
+        device = got.pop("device")
+        assert device.kind is inspect.Parameter.KEYWORD_ONLY
+        assert device.default is None
     assert [(p.name, p.kind, p.default) for p in got.values()] == \
         [(p.name, p.kind, p.default) for p in want.values()]
 
 
+@pytest.mark.parametrize("name", DENSE_STEREO)
+def test_dense_stereo_export_matches_jax_signature(name):
+    """Every dense-stereo name of the JAX package's top level is the
+    port's too, with the JAX signature plus a keyword-only device."""
+    _assert_signature(name)
+
+
+VISUALIZATION = _jax_exports("visualization")
+# the helpers that do no device work
+HOST_HELPERS = ("annotate_image__valid_intrinsics_region",
+                "fitted_gaussian_equation", "imagergrid_using")
+
+
+def test_visualization_exports_cover_the_jax_package():
+    assert len(VISUALIZATION) == 18
+    assert set(HOST_HELPERS) < set(VISUALIZATION)
+    assert {n for n in VISUALIZATION if n not in HOST_HELPERS} == \
+        {n for n in VISUALIZATION if n.startswith("show_")}
+
+
+@pytest.mark.parametrize("name", VISUALIZATION)
+def test_visualization_export_matches_jax_signature(name):
+    """Every visualization name of the JAX package's top level is the
+    port's too: the show_* functions with the JAX signature plus a
+    keyword-only device, the host helpers with exactly the JAX one."""
+    _assert_signature(name, device=name not in HOST_HELPERS)
+
+
 def test_every_tool_that_draws_nothing_is_ported():
-    assert len(JAX_TOOLS) == 17
+    """Every script of the JAX package's tools/, the ten mrcal-show-*
+    ones too, has its module in mrcal_tpu_torch.tools."""
+    assert len(JAX_TOOLS) == 27
     port = sorted(f[:-3] for f in os.listdir(os.path.join(
         ROOT, "mrcal_tpu_torch", "tools"))
         if f.endswith(".py") and not f.startswith("_"))
@@ -336,6 +415,17 @@ TOOL_ARGV = {
                         "b.cameramodel", "i.png"],
     "reproject_points": ["a.cameramodel", "b.cameramodel"],
     "rotate_corners": ["--rot", "90", "--object-width-n", "10", "c.vnl"],
+    "show_distortion_off_pinhole": ["m.cameramodel"],
+    "show_geometry": ["a.cameramodel", "b.cameramodel"],
+    "show_model_resolution": ["m.cameramodel"],
+    "show_projection_diff": ["a.cameramodel", "b.cameramodel"],
+    "show_projection_uncertainty": ["m.cameramodel"],
+    "show_residuals": ["--histogram", "m.cameramodel"],
+    "show_residuals_board_observation": ["m.cameramodel", "0"],
+    "show_splined_model_correction": ["m.cameramodel"],
+    "show_stereo_pair_diff": ["a.cameramodel", "b.cameramodel",
+                              "c.cameramodel", "d.cameramodel"],
+    "show_valid_intrinsics_region": ["m.cameramodel"],
     "stereo": ["--az-fov-deg", "50", "--el-fov-deg", "40", "a.cameramodel",
                "b.cameramodel", "0.png", "1.png"],
     "to_cahvor": ["m.cameramodel"],

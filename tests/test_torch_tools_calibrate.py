@@ -17,12 +17,16 @@ for number as printed; the written models by their optimization inputs
 (the same outliers; rms 1e-10 relative and b 1e-5, as tests/
 test_torch_solver.py holds a solve), their extrinsics (1e-7) and their
 projection of a 30 x 22 grid of camera 0's unprojections at 1 m (1e-5
-px).  --explore exits nonzero and names the plan's next item.  (That
-every tool's main wants the card unless told is tests/
-test_torch_isolation.py's.)
+px).  The --explore shell's plots (calibrate_cameras.explore_namespace,
+the JAX script's names) on the models of the scene's truth are held to the
+JAX package's show_* called as its shell calls them, by tests/
+test_torch_visualization.py's comparison of figures (texts equal, arrays
+within 1e-8 of their largest entry).  (That every tool's main wants the
+card unless told is tests/test_torch_isolation.py's.)
 
 The JAX scripts run in processes started before the first test
-(jax_reference_pool), one per case.
+(jax_reference_pool), one per case, and one more draws the shell's
+plots.
 """
 
 import os
@@ -33,8 +37,11 @@ import pytest
 
 import mrcal_tpu_torch
 
-from jax_references import jax_reference_pool, run_jax_tools, run_tool
+from jax_references import (jax_reference_pool, run_jax_tools, run_tool,
+                            viz_explore_references)
 from test_torch_residuals import torch_threads  # noqa: F401
+from test_torch_visualization import (  # noqa: F401
+    assert_contents_match, saved_figures)
 
 RMS_RTOL = 1e-10
 B_TOL = 1e-5
@@ -200,6 +207,57 @@ CASES = {
 }
 # the JAX runs, one process each
 GROUPS = (("focal",), ("skip_outlier_rejection",), ("seed",), ("splined",))
+# the --explore shell's plots drawn: (name in the shell, the function,
+# target, arguments, keywords) as jax_references.viz_explore_references
+# takes them
+EXPLORE_CALLS = [
+    ("show_geometry", "show_geometry", "models", (),
+     dict(hardcopy="{directory}/geometry.png")),
+    ("show_projection_uncertainty", "show_projection_uncertainty",
+     "camera 1", (), dict(gridn_width=8,
+                          hardcopy="{directory}/uncertainty.png")),
+    ("show_distortion_off_pinhole", "show_distortion_off_pinhole",
+     "camera 0", (), dict(gridn_width=10,
+                          hardcopy="{directory}/distortion.png")),
+    ("show_valid_intrinsics_region", "show_valid_intrinsics_region",
+     "camera 1", (), dict(hardcopy="{directory}/region.png")),
+    ("show_residuals_vectorfield", "show_residuals_vectorfield", "oi", (),
+     dict(hardcopy="{directory}/vectorfield.png")),
+    ("show_residuals_histogram", "show_residuals_histogram", "oi", (),
+     dict(binwidth=0.1, hardcopy="{directory}/histogram.png")),
+    ("show_residuals_regional", "show_residuals_regional", "oi", (),
+     dict(gridn_width=6, hardcopy="{directory}/regional.png")),
+    ("show_residuals_board_observation", "show_residuals_board_observation",
+     "oi", (2,), dict(hardcopy="{directory}/observation.png")),
+    ("show_residuals_board_observation_worst",
+     "show_residuals_board_observation", "oi", (0,),
+     dict(hardcopy="{directory}/worst.png")),
+]
+
+
+def explore_inputs():
+    """optimization_inputs of the scene at its truth: two OPENCV4 cameras,
+    6 frames of the 8 x 6 board with 0.3 px of noise (no solve)."""
+    models = scene_models()
+    q, Rt = board_observations(models, 6, moved=0)
+    Nf, Nc = q.shape[:2]
+    return dict(
+        intrinsics=np.array([m.intrinsics()[1] for m in models]),
+        extrinsics_rt_fromref=np.array(
+            [m.extrinsics_rt_fromref() for m in models[1:]]),
+        frames_rt_toref=np.array([
+            mrcal_tpu_torch.rt_from_Rt(R, device="cpu").numpy()
+            for R in Rt]),
+        observations_board=np.concatenate(
+            [q, np.ones(q.shape[:-1] + (1,))], axis=-1).reshape(
+                Nf * Nc, *q.shape[2:4], 3),
+        indices_frame_camintrinsics_camextrinsics=np.array(
+            [[f, c, c - 1] for f in range(Nf) for c in range(Nc)],
+            dtype=np.int32),
+        lensmodel="LENSMODEL_OPENCV4",
+        imagersizes=np.array([m.imagersize() for m in models]),
+        calobject_warp=np.array([0.002, -0.001]),
+        calibration_object_spacing=0.077)
 
 
 @pytest.fixture(scope="module")
@@ -207,7 +265,11 @@ def calib(tmp_path_factory):
     """The scenes' files, the argument lists of each case in each
     package's directory, and futures of the JAX runs."""
     root = tmp_path_factory.mktemp("calibrate")
-    with jax_reference_pool(len(GROUPS)) as pool:
+    with jax_reference_pool(len(GROUPS) + 1) as pool:
+        oi = explore_inputs()
+        (root / "explore" / "jax").mkdir(parents=True)
+        explore = pool.submit(viz_explore_references, oi,
+                              str(root / "explore" / "jax"), EXPLORE_CALLS)
         models = scene_models()
         q, _ = board_observations(models, 10)
         write_corners_vnl(root / "corners.vnl", q)
@@ -250,6 +312,7 @@ def calib(tmp_path_factory):
                              for n in group])
             for i, n in enumerate(group):
                 futures[n] = (f, i)
+        futures["explore"] = (oi, explore)
         yield root, argv, futures
 
 
@@ -290,13 +353,45 @@ def test_calibrate_cameras_matches_jax(calib, name):
         assert np.array_equal(intr[2:4], [319.5, 239.5])
 
 
-def test_explore_is_refused(calib, tmp_path):
-    """--explore draws through visualization.py: the tool exits nonzero
-    before it solves, naming the plan's item for it, and writes
-    nothing."""
-    argv = _args(calib[0] / "corners.vnl", tmp_path, "--focal", "750",
-                 "--imagersize", "800", "600", "--explore")
-    code, out, err, _ = run_tool("torch", "calibrate-cameras", argv)
-    assert code != 0 and out == ""
-    assert "--explore" in err and "ROADMAP.md queue 1 item 4" in err
-    assert os.listdir(tmp_path) == []
+def _jax_explore_names():
+    """The names of the JAX mrcal-calibrate-cameras --explore shell: the
+    keywords of the dict its _explore builds."""
+    import ast
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools",
+            "mrcal-calibrate-cameras")) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+              and n.name == "_explore")
+    call = next(n for n in ast.walk(fn) if isinstance(n, ast.Call)
+                and getattr(n.func, "id", None) == "dict")
+    return sorted(k.arg for k in call.keywords)
+
+
+def test_explore_namespace_draws_what_jax_draws(calib, saved_figures):
+    """--explore's shell has the JAX script's names, and its show_* draw,
+    on the device given, the figures the JAX package's show_* draw when
+    called as the JAX shell calls them."""
+    from mrcal_tpu_torch.tools import calibrate_cameras
+    root, _, futures = calib
+    oi, explore = futures["explore"]
+    models = [mrcal_tpu_torch.cameramodel(optimization_inputs=oi,
+                                          icam_intrinsics=i)
+              for i in range(len(oi["intrinsics"]))]
+    models[1].extrinsics_rt_fromref(oi["extrinsics_rt_fromref"][0])
+    ns = calibrate_cameras.explore_namespace(models, oi, {}, None, "cpu")
+    assert sorted(ns) == _jax_explore_names()
+    directory = root / "explore" / "torch"
+    directory.mkdir()
+    for name, _, target, args, kw in EXPLORE_CALLS:
+        kw = {k: v.format(directory=directory) if isinstance(v, str) else v
+              for k, v in kw.items()}
+        if target.startswith("camera"):
+            kw["icam"] = int(target.split()[1])
+        ns[name](*args, **kw)
+    want = explore.result(timeout=900)
+    assert len(saved_figures) == len(want) == len(EXPLORE_CALLS)
+    for (name, *_), a, b in zip(EXPLORE_CALLS, saved_figures, want):
+        assert_contents_match(a, b, name)
+    assert sorted(os.listdir(directory)) == \
+        sorted(os.listdir(root / "explore" / "jax"))

@@ -1,8 +1,9 @@
 """The port's tools of models, corners and poses against the JAX package's
 scripts, on the CPU: mrcal-reoptimize, mrcal-convert-lensmodel (the
-re-solve, --monocular, --sampled with --num-trials, --viz refused),
+re-solve, --monocular, --sampled with --num-trials, --viz),
 mrcal-triangulate (a pixel pair with both noises, a range estimate and
---make-corrected-model1; a feature found in two images; --viz refused),
+--make-corrected-model1; a feature found in two images; --viz uncertainty
+with both noises and with none),
 mrcal-report-fov, mrcal-reproject-points, mrcal-is-within-valid-
 intrinsics-region, mrcal-graft-models, mrcal-to-cahvor, mrcal-from-cahvor,
 mrcal-cull-corners, mrcal-rotate-corners, mrcal-to-kalibr, mrcal-from-
@@ -18,11 +19,15 @@ words, the numbers as printed but for one unit in the last place), its
 text outputs byte for byte where they are text of the inputs, and its
 models by assert_models_match (rms 1e-10 relative and b 1e-5 where they
 embed a solve; the grid projections 1e-5 px and the extrinsics 1e-7, or
-what a case states).
+what a case states).  The --viz figures are held to the JAX script's by
+tests/test_torch_visualization.py's comparison (texts equal, arrays
+within 1e-8 of their largest entry; the convert-lensmodel diff, between
+each package's own re-solve, within GRID_PX_TOL).
 
-The JAX scripts run in five processes started before the first test
+The JAX scripts run in six processes started before the first test
 (jax_reference_pool): reoptimize, the re-solve, the other conversions,
-triangulate with calibration noise, and the rest.
+triangulate with calibration noise (and the --viz uncertainty cases),
+--viz of convert-lensmodel, and the rest.
 """
 
 import io
@@ -34,13 +39,16 @@ import pytest
 import mrcal_tpu_torch
 
 from jax_references import (dense_texture, jax_reference_pool,
-                            run_jax_tools, run_tool)
+                            run_jax_show_tools, run_jax_tools, run_tool)
 from test_torch_residuals import torch_threads  # noqa: F401
 from test_torch_tools_calibrate import (assert_models_match,
                                         assert_report_matches,
                                         assert_runs_match,
                                         board_observations, scene_models,
                                         write_corners_vnl)
+from test_torch_tools_calibrate import GRID_PX_TOL
+from test_torch_visualization import (  # noqa: F401
+    assert_contents_match, saved_figures)
 
 # the corrected camera-1 extrinsics come out of scipy's minimize of a
 # function whose values differ by roundoff between the packages
@@ -206,12 +214,35 @@ CASES = {
     "to_kalibr": ("to-kalibr", ["{cam0}", "{cam1}"], ""),
     "from_kalibr": ("from-kalibr", ["--outdir", "{out}", "{kalibr}"], ""),
     "from_ros": ("from-ros", ["{ros}"], ""),
+    "convert_viz": ("convert-lensmodel",
+                    ["--viz", "--title", "old vs new", "--hardcopy",
+                     "{out}/convert-viz.png", "--outfile",
+                     "{out}/viz.cameramodel", "LENSMODEL_OPENCV4", "{cam0}"],
+                    ""),
+    "triangulate_viz": ("triangulate",
+                        ["--q-calibration-stdev", "0.3",
+                         "--q-observation-stdev", "0.3", "--viz",
+                         "uncertainty", "--extratitle", "both noises",
+                         "--hardcopy", "{out}/ellipses.png", "{cam0}",
+                         "{cam1}", "420", "310", "{q1x}", "{q1y}"], ""),
+    "triangulate_viz_none": ("triangulate",
+                             ["--viz", "uncertainty", "--hardcopy",
+                              "{out}/none.png", "{cam0}", "{cam1}", "420",
+                              "310", "{q1x}", "{q1y}"], ""),
 }
 GROUPS = (("reoptimize",), ("convert_resolve",),
-          ("convert_monocular", "convert_sampled"), ("triangulate_pair",),
+          ("convert_monocular", "convert_sampled"),
+          ("triangulate_pair", "triangulate_viz", "triangulate_viz_none"),
+          ("convert_viz",),
           ("triangulate_images",) + tuple(
               n for n in CASES
               if not n.startswith(("reoptimize", "convert", "triangulate"))))
+# the --viz cases: the files each writes, and the tolerance of its figure's
+# arrays
+DRAWING = {"convert_viz": (["convert-viz.png", "viz.cameramodel"],
+                           GRID_PX_TOL),
+           "triangulate_viz": (["ellipses.png"], 0.0),
+           "triangulate_viz_none": ([], 0.0)}
 # the cases whose stdout is a model file
 MODEL_STDOUT = ("reoptimize", "convert_resolve", "convert_sampled",
                 "graft_models", "from_cahvor", "from_ros")
@@ -241,9 +272,17 @@ def tools(tmp_path_factory):
                 argv[name, pkg] = [a.format(out=root / pkg, q1x=q1[0],
                                             q1y=q1[1], **paths)
                                    for a in args]
+        for name in DRAWING:
+            for pkg in ("jax", "torch"):
+                out = root / name / pkg
+                out.mkdir(parents=True)
+                argv[name, pkg] = [a.format(out=out, q1x=q1[0], q1y=q1[1],
+                                            **paths) for a in CASES[name][1]]
         futures = {}
         for group in GROUPS:
-            f = pool.submit(run_jax_tools, [
+            run = (run_jax_show_tools if set(group) & set(DRAWING)
+                   else run_jax_tools)
+            f = pool.submit(run, [
                 (CASES[n][0], argv[n, "jax"], CASES[n][2]) for n in group])
             for i, n in enumerate(group):
                 futures[n] = (f, i)
@@ -251,12 +290,13 @@ def tools(tmp_path_factory):
 
 
 def _run(tools, name):
-    """(the port's run, the JAX script's run) of a case."""
+    """(the port's run, the JAX script's run: exit code, stdout, stderr)
+    of a case."""
     _, argv, futures = tools
     tool, _, stdin = CASES[name]
     got = run_tool("torch", tool, argv[name, "torch"], stdin)
     f, i = futures[name]
-    return got, f.result(timeout=900)[i]
+    return got, f.result(timeout=900)[i][:3]
 
 
 def _stdout_model(root, pkg, name, text):
@@ -344,18 +384,27 @@ def test_from_kalibr_matches_jax(tools):
                             grid_px=0, rt=1e-15)
 
 
-@pytest.mark.parametrize("tool, argv", [
-    ("convert-lensmodel", ["--viz", "LENSMODEL_OPENCV4", "{cam0}"]),
-    ("triangulate", ["--viz", "uncertainty", "{cam0}", "{cam1}", "420",
-                     "310", "400", "311"]),
-])
-def test_drawing_options_are_refused(tools, tool, argv):
-    """The drawing options exit nonzero before any work, naming the plan's
-    item for them."""
-    root = tools[0]
-    paths = dict(cam0=str(root / "camera-0.cameramodel"),
-                 cam1=str(root / "camera-1.cameramodel"))
-    code, out, err, _ = run_tool("torch", tool,
-                                 [a.format(**paths) for a in argv])
-    assert code != 0 and out == ""
-    assert "--viz" in err and "ROADMAP.md queue 1 item 4" in err
+@pytest.mark.parametrize("name", list(DRAWING))
+def test_drawing_options_draw_what_jax_draws(tools, saved_figures, name):
+    """convert-lensmodel --viz (the projection difference between the
+    model and its conversion) and triangulate --viz uncertainty (the
+    ellipses; a warning and no file without noise): the same reports,
+    files and figures as the JAX scripts'."""
+    root, _, futures = tools
+    got, want = _run(tools, name)
+    f, i = futures[name]
+    want_figures = f.result(timeout=900)[i][3]
+    outdirs = [root / name / pkg for pkg in ("jax", "torch")]
+    assert got[0] == 0 and want[0] == 0, (got[:3], want)
+    assert_runs_match(got, want, outdirs)
+    if name == "convert_viz":
+        assert_models_match(outdirs[1] / "viz.cameramodel",
+                            outdirs[0] / "viz.cameramodel")
+    assert ("## WARNING: don't have any ellipses" in got[1]) == \
+        (name == "triangulate_viz_none")
+    files, atol = DRAWING[name]
+    for d in outdirs:
+        assert sorted(p.name for p in d.iterdir()) == files
+    assert len(saved_figures) == len(want_figures) == (1 if files else 0)
+    for a, b in zip(saved_figures, want_figures):
+        assert_contents_match(a, b, name, atol)

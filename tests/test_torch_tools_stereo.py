@@ -10,7 +10,9 @@ shifted 6 px, by camera 1.  The cases:
     and the point cloud;
   - mrcal-stereo by NCC, with a region of interest and the
     valid-intrinsics mask of camera 1's region;
-  - --viz refused;
+  - --viz geometry and --viz rectification, their figures held to the
+    JAX script's by tests/test_torch_visualization.py's comparison (texts
+    equal, arrays within 1e-8 of their largest entry);
   - mrcal-reproject-image to camera 0's corner-fit pinhole, and from
     camera 0 to camera 1 (--intrinsics-only).
 
@@ -19,8 +21,9 @@ as printed but for one unit in the last place); the images it writes
 pixel for pixel; the point cloud's header byte for byte and its points to
 one unit in the last written place (1e-4 m).
 
-The JAX scripts run in three processes started before the first test
-(jax_reference_pool): the SGM case, the NCC case and the reprojections.
+The JAX scripts run in four processes started before the first test
+(jax_reference_pool): the SGM case, the NCC case, the reprojections and
+the plots.
 """
 
 import numpy as np
@@ -29,9 +32,11 @@ import pytest
 import mrcal_tpu_torch
 
 from jax_references import (DENSE_MODELS, dense_texture, jax_reference_pool,
-                            run_jax_tools, run_tool)
+                            run_jax_show_tools, run_jax_tools, run_tool)
 from test_torch_residuals import torch_threads  # noqa: F401
 from test_torch_tools_calibrate import assert_runs_match
+from test_torch_visualization import (  # noqa: F401
+    assert_contents_match, saved_figures)
 
 PLY_TOL = 1.0001e-4
 
@@ -75,17 +80,36 @@ CASES = {
                          ["to-cam1.png"]),
 }
 GROUPS = (("sgm",), ("ncc",), ("reproject_pinhole", "reproject_models"))
+# --viz: name -> (argv, the file it writes into {out})
+VIZ_CASES = {
+    "geometry": (RECT + ["--viz", "geometry", "--outdir", "{out}", "{cam0}",
+                         "{cam1}", "{im0}", "{im1}"],
+                 "stereo-geometry.png"),
+    "rectification": (RECT + ["--viz", "rectification", "--title", "grids",
+                              "--hardcopy", "{out}/rectification.png",
+                              "{cam0}", "{cam1_region}", "{im0}", "{im1}"],
+                      "rectification.png"),
+}
 
 
 @pytest.fixture(scope="module")
 def stereo(tmp_path_factory):
     root = tmp_path_factory.mktemp("stereo")
-    with jax_reference_pool(len(GROUPS)) as pool:
+    with jax_reference_pool(len(GROUPS) + 1) as pool:
         paths = _inputs(root)
         argv = {(name, pkg): [a.format(out=root / pkg, **paths)
                               for a in case[1]]
                 for name, case in CASES.items() for pkg in ("jax", "torch")}
+        for name, (args, _) in VIZ_CASES.items():
+            for pkg in ("jax", "torch"):
+                (root / name / pkg).mkdir(parents=True)
+                argv[f"viz_{name}", pkg] = [
+                    a.format(out=root / name / pkg, **paths) for a in args]
         futures = {}
+        f = pool.submit(run_jax_show_tools, [
+            ("stereo", argv[f"viz_{n}", "jax"], "") for n in VIZ_CASES])
+        for i, n in enumerate(VIZ_CASES):
+            futures[f"viz_{n}"] = (f, i)
         for group in GROUPS:
             f = pool.submit(run_jax_tools, [(CASES[n][0], argv[n, "jax"], "")
                                             for n in group])
@@ -135,9 +159,19 @@ def test_tool_matches_jax(stereo, name):
             assert 0.5 < valid[roi].mean() < 1.0 and not valid[~roi].any()
 
 
-def test_stereo_viz_is_refused(stereo):
-    argv = stereo[1]
-    code, out, err, _ = run_tool("torch", "stereo",
-                                 ["--viz", "geometry"] + argv["sgm", "torch"])
-    assert code != 0 and out == ""
-    assert "--viz geometry" in err and "ROADMAP.md queue 1 item 4" in err
+@pytest.mark.parametrize("name", list(VIZ_CASES))
+def test_stereo_viz_draws_what_jax_draws(stereo, saved_figures, name):
+    """--viz writes the JAX script's plot instead of running the
+    pipeline: the same report and file, and the same figure."""
+    root, argv, futures = stereo
+    got = run_tool("torch", "stereo", argv[f"viz_{name}", "torch"])
+    f, i = futures[f"viz_{name}"]
+    want = f.result(timeout=900)[i]
+    assert got[0] == 0 and want[0] == 0, (got[:3], want[:3])
+    outdirs = [root / name / pkg for pkg in ("jax", "torch")]
+    assert_runs_match(got, want, outdirs)
+    for d in outdirs:
+        assert sorted(p.name for p in d.iterdir()) == [VIZ_CASES[name][1]]
+    assert len(saved_figures) == len(want[3]) == 1
+    assert_contents_match(saved_figures[0], want[3][0], name)
+    assert got[3]["hardcopy"].endswith(VIZ_CASES[name][1])
