@@ -17,8 +17,9 @@ nonzero:
    batch, a non-SPD block, a cond-1e6 f32 batch), then the fused
    cholesky_factor_solve and the solve at the Schur step's shapes
    (opencv8_1cam, opencv8_4cam, rig16cam, splined_30x18's K = 1083,
-   stereo_opencv8_2cam's K = 33), a ragged B, K past a warp, B = 0 and a
-   large-B sweep, f64 and f32.
+   stereo_opencv8_2cam's K = 33, sfm_points' n = 3 blocks at (14996, 3,
+   2385), (14996, 3, 1), (4996, 3, 801) and (4996, 3, 1)), a ragged B, K
+   past a warp, B = 0 and a large-B sweep, f64 and f32.
 4. main path: the bench's opencv8_1cam calibration (LENSMODEL_OPENCV8, one
    camera, 84 frames of a 14x14 board; 32938 measurements, 518 states),
    perturbed as bench._perturbed_oi(seed=1), solved by optimize() on the
@@ -200,6 +201,22 @@ nonzero:
    1 px, if the largest is smaller), the
    resolution 1e-8 relative, poses 1e-12 m.  No batched-Cholesky kernel
    may launch, and nothing is drawn (no matplotlib import).
+   sfm_points: SfM with the points in the state (problems.sfm_points,
+   mrcal's test-sfm-fixed-points): camera 0 of stereo_opencv8_2cam flies
+   make_tracks' default track, 398 frames over 15,000 ground features
+   (the last 4 fixed), 0.3 px of noise; 120000 measurements, 47370 states.
+   Warm-up, then a timed f64 solve: the point blocks' fused solve at
+   (14996, 3, 2385) and their back-substitution at (14996, 3, 1) once per
+   iteration, no other launch; the rms within 3 % of the noise's
+   prediction, 0.3 sqrt(1 - Nstate / Nmeasurements); the variable points'
+   and the translations' errors against the truth, the peak memory and
+   the two halves' ms printed.  Then sfm_points_20k (20000 observations:
+   134 frames, 5000 points; 40000 measurements, 15786 states) solved on
+   the card and on the CPU from the same inputs: the card's rms held to
+   the JAX package's f64 result, 0.2343302348497757 px +- 1e-8, in 40 +-
+   10 iterations, b_packed to the CPU's within 1e-5, the launches at (4996,
+   3, 801) and (4996, 3, 1), and optimizer_callback (J with the point
+   columns) card against CPU at 1e-12.
 6. mesh: the multi-device path (mrcal_tpu_torch.parallel), the
    observations sharded over a torch.distributed group.
    nccl1: a one-rank NCCL group (a file store in a temporary directory,
@@ -362,6 +379,21 @@ STEREO_DENSE_RTOL = 1e-10
 # the dense pairs: every pixel of camera 0 on a plane this far from it
 # (m), tilted by this much about camera 0's y axis
 STEREO_PLANE = (2.0, 20.0)
+# sfm_points (problems.SFM_POINTS): the converged rms is held to the
+# noise's prediction, noise_px sqrt(1 - Nstate / Nmeasurements), +- 3 %
+SFM_POINTS_SHAPE = (120000, 47370)
+SFM_POINTS_RMS_RTOL = 0.03
+# sfm_points_20k (problems.SFM_POINTS_20K): the JAX package's converged
+# f64 rms on the CPU (tests/jax_target_sfm_points.py; 40 iterations), held
+# to 1e-8 px; the card against the CPU: b_packed (packed units), and the
+# iterations within 10 of the JAX package's 40 (the port on the CPU takes
+# 43: the solve reaches the optimum in ~29, and the count of the rejected
+# roundoff steps after it follows the summation order)
+SFM_POINTS_20K_SHAPE = (40000, 15786)
+SFM_POINTS_20K_F64_RMS = 0.2343302348497757
+SFM_POINTS_20K_RMS_TOL = 1e-8
+SFM_POINTS_20K_B_ATOL = 1e-5
+SFM_POINTS_20K_NITER_RANGE = (40 - 10, 40 + 10)
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 # non-tensor-core FP64 / FP32 rates
@@ -617,11 +649,18 @@ SPLINED_FLEET_SHAPES = [(SPLINED_FLEET_P * 84, 6, 1083),
 CAHVOR_SHAPES = [(84, 6, 12)]
 # stereo_opencv8_2cam: 2*12 intrinsics, 6 extrinsics and the warp, K = 33
 STEREO_SHAPES = [(84, 6, 33)]
+# sfm_points: the point blocks, (Npoints_variable, 3, Nc + 1) fused and
+# (Npoints_variable, 3, 1) back-substituted; Nc = 6 (Nframes - 1) + 2, the
+# camera block's two warp slots being always allocated (zero here), as in
+# the JAX package
+SFM_POINTS_SHAPES = [(14996, 3, 2385), (14996, 3, 1)]
+SFM_POINTS_20K_SHAPES = [(4996, 3, 801), (4996, 3, 1)]
 LARGE_SHAPES = [(1 << 20, 3, 4), (1 << 18, 6, 15), (1 << 20, 3, 1),
                 (1 << 18, 6, 1)]
 CHECK_SHAPES = (MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES + SPLINED_SHAPES
                 + ODD_SHAPES + FLEET_SHAPES + RIG16_BATCH_SHAPES
                 + SPLINED_FLEET_SHAPES + CAHVOR_SHAPES + STEREO_SHAPES
+                + SFM_POINTS_SHAPES + SFM_POINTS_20K_SHAPES
                 + [(131, 6, 33), (131, 3, 4), (0, 6, 15), (70000, 6, 0)]
                 + LARGE_SHAPES)
 
@@ -715,11 +754,14 @@ def time_kernels(torch, card, extra_shapes=None):
                                + SPLINED_SHAPES + ODD_SHAPES[:1]
                                + FLEET_SHAPES + RIG16_BATCH_SHAPES
                                + SPLINED_FLEET_SHAPES[:1] + CAHVOR_SHAPES
-                               + STEREO_SHAPES + LARGE_SHAPES),
+                               + STEREO_SHAPES + SFM_POINTS_SHAPES[:1]
+                               + SFM_POINTS_20K_SHAPES[:1] + LARGE_SHAPES),
         cholesky_solve_factored=(MAIN_SHAPES + CAM4_SHAPES + RIG16_SHAPES
                                  + ODD_SHAPES[1:] + FLEET_SHAPES
                                  + RIG16_BATCH_SHAPES
-                                 + SPLINED_FLEET_SHAPES[1:] + LARGE_SHAPES),
+                                 + SPLINED_FLEET_SHAPES[1:]
+                                 + SFM_POINTS_SHAPES[1:]
+                                 + SFM_POINTS_20K_SHAPES[1:] + LARGE_SHAPES),
         cholesky_factor=[(84, 6, 0), (1 << 20, 3, 0), (1 << 18, 6, 0)])
     for name, more in (extra_shapes or {}).items():
         shapes[name] += [sh for sh in more if sh not in shapes[name]]
@@ -882,10 +924,13 @@ def time_halves(torch, phase, oi_solved, stats):
 
 
 def timed_solve(torch, phase, oi, shape, rms_ref, rms_tol, niter_range=None,
-                launches_per_iteration=True):
+                launches_per_iteration=True, kernel_shapes=None, solved=None):
     """A bench configuration in f64: a warm-up solve, then a timed solve
-    with the kernels' launch counts, held to the JAX package's rms (and
-    iteration count), and its two halves timed apart."""
+    with the kernels' launch counts and its peak memory, held to the JAX
+    package's rms (and iteration count), and its two halves timed apart.
+    kernel_shapes: the (B, n, K) of the fused launch and of the
+    back-substitution, asserted for every launch of the timed solve.
+    solved(oi_solved) -> a dict of more summary entries."""
     from mrcal_tpu_torch import optimize
     from mrcal_tpu_torch.ops import batched_cholesky as bc
     from mrcal_tpu_torch.optimize import spec_from_inputs
@@ -902,16 +947,20 @@ def timed_solve(torch, phase, oi, shape, rms_ref, rms_tol, niter_range=None,
 
     oi_f64 = _copy(oi)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     bc.reset_launches()
-    t0 = time.perf_counter()
-    stats = optimize(precision="f64", **SOLVE_KW, **oi_f64)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with KernelShapes() as ks:
+        t0 = time.perf_counter()
+        stats = optimize(precision="f64", **SOLVE_KW, **oi_f64)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = dict(bc.launches)
     rms = stats["rms_reproj_error__pixels"]
     niter = stats["niterations"]
     log(f"[{phase}] f64: rms {rms!r} px in {niter} iterations, "
         f"{wall:.4f} s wall, {wall / niter * 1e3:.3f} ms/iteration, "
+        f"peak memory {peak / 2**30:.3f} GiB, "
         f"launches {launches}, phases {stats['time_s']}")
     if not (np.isfinite(stats["x"]).all()
             and stats["x"].shape == (spec.Nmeasurements,)
@@ -929,10 +978,22 @@ def timed_solve(torch, phase, oi, shape, rms_ref, rms_tol, niter_range=None,
     elif any(launches.values()):
         fail(f"[{phase}] launched batched-Cholesky kernels {launches}; "
              "this path has no frame or point blocks")
+    if kernel_shapes is not None:
+        check_kernel_shapes(phase, ks.shapes, kernel_shapes)
+    more = solved(oi_f64) if solved else {}
     halves = time_halves(torch, phase, oi_f64, stats)
     return oi, dict(rms=rms, niterations=niter, wall_s=wall,
                     ms_per_iteration=wall / niter * 1e3, launches=launches,
-                    **halves)
+                    peak_bytes=peak, **halves, **more)
+
+
+def check_kernel_shapes(phase, shapes, want):
+    """Every fused launch at want[0] and every back-substitution at
+    want[1], as KernelShapes recorded them."""
+    for name, sh in zip(KernelShapes.NAMES, want):
+        if set(shapes[name]) != {tuple(sh)}:
+            fail(f"[{phase}] {name} ran at {sorted(set(shapes[name]))}, "
+                 f"not {tuple(sh)}")
 
 
 def phase_rig16cam(torch):
@@ -3924,6 +3985,95 @@ def phase_visualization(torch, models, splined):
     return dict(calls=summary, launches=launches, wall_phase_s=wall)
 
 
+def sfm_points_errors(oi, truth):
+    """The solved variable points' and frames' translations' distances from
+    the truth (m): median and largest of each."""
+    nv = len(oi["points"]) - oi["Npoints_fixed"]
+    dp = np.linalg.norm(oi["points"][:nv] - truth["points"][:nv], axis=-1)
+    dt = np.linalg.norm(oi["extrinsics_rt_fromref"][:, 3:]
+                        - truth["extrinsics_rt_fromref"][:, 3:], axis=-1)
+    return dict(points_median_m=float(np.median(dp)),
+                points_max_m=float(dp.max()),
+                translations_median_m=float(np.median(dt)),
+                translations_max_m=float(dt.max()))
+
+
+def phase_sfm_points(torch):
+    """SfM with the points in the state: sfm_points at full size in f64
+    (the point blocks' fused solve at SFM_POINTS_SHAPES, no frame block),
+    held to the noise's prediction, and its errors against the truth; then
+    sfm_points_20k on the card and on the CPU, held to the JAX package's
+    rms and to each other, with optimizer_callback card against CPU."""
+    from mrcal_tpu_torch import optimize, problems
+    from mrcal_tpu_torch.ops import batched_cholesky as bc
+    from mrcal_tpu_torch.optimize import spec_from_inputs
+    phase = "sfm_points"
+    t_phase = time.perf_counter()
+    oi, truth = problems.sfm_points(**problems.SFM_POINTS)
+    noise = problems.SFM_POINTS["noise_px"]
+    Nmeas, Nstate = SFM_POINTS_SHAPE
+    rms_pred = float(noise * np.sqrt(1 - Nstate / Nmeas))
+
+    def errors(oi_solved):
+        e = sfm_points_errors(oi_solved, truth)
+        log(f"[{phase}] against the truth: variable points median "
+            f"{e['points_median_m']:.3e} m, largest {e['points_max_m']:.3e}"
+            f" m; translations median {e['translations_median_m']:.3e} m, "
+            f"largest {e['translations_max_m']:.3e} m")
+        return dict(errors=e)
+
+    oi, summary = timed_solve(
+        torch, phase, oi, SFM_POINTS_SHAPE, rms_pred,
+        SFM_POINTS_RMS_RTOL * rms_pred, kernel_shapes=SFM_POINTS_SHAPES,
+        solved=errors)
+    log(f"[{phase}] rms {summary['rms']!r} px, the noise's prediction "
+        f"{rms_pred!r} (+- {SFM_POINTS_RMS_RTOL * 100:g} %)")
+    summary["rms_predicted"] = rms_pred
+
+    # the reduced size, card against CPU on the same inputs
+    p20 = "sfm_points_20k"
+    oi20, _ = problems.sfm_points(**problems.SFM_POINTS_20K)
+    spec = spec_from_inputs(**oi20)
+    if (spec.Nmeasurements, spec.Nstate) != SFM_POINTS_20K_SHAPE:
+        fail(f"{p20} has the wrong shape "
+             f"{(spec.Nmeasurements, spec.Nstate)}")
+    bc.reset_launches()
+    with KernelShapes() as ks:
+        stats_g, wall_g = _sync_time(torch, lambda: optimize(
+            precision="f64", **SOLVE_KW, **_copy(oi20)))
+    launches = dict(bc.launches)
+    stats_c, wall_c = _sync_time(torch, lambda: optimize(
+        device="cpu", precision="f64", **SOLVE_KW, **_copy(oi20)))
+    rms_g = stats_g["rms_reproj_error__pixels"]
+    rms_c = stats_c["rms_reproj_error__pixels"]
+    n_g, n_c = stats_g["niterations"], stats_c["niterations"]
+    err_b = float(np.abs(stats_g["b_packed"] - stats_c["b_packed"]).max())
+    log(f"[{p20}] f64: rms card {rms_g!r} px in {n_g} iterations "
+        f"({wall_g:.3f} s), CPU {rms_c!r} in {n_c} ({wall_c:.3f} s); the "
+        f"JAX package's {SFM_POINTS_20K_F64_RMS!r}; card vs CPU b "
+        f"{err_b:.3e} (tol {SFM_POINTS_20K_B_ATOL:g}); launches {launches}")
+    if not (np.isfinite(stats_g["x"]).all()
+            and stats_g["x"].shape == (spec.Nmeasurements,)):
+        fail(f"[{p20}] non-finite or misshapen output")
+    if not abs(rms_g - SFM_POINTS_20K_F64_RMS) <= SFM_POINTS_20K_RMS_TOL:
+        fail(f"[{p20}] rms {rms_g!r} is not within "
+             f"{SFM_POINTS_20K_RMS_TOL} of {SFM_POINTS_20K_F64_RMS!r}")
+    lo, hi = SFM_POINTS_20K_NITER_RANGE
+    if not lo <= n_g <= hi:
+        fail(f"[{p20}] the card's solve took {n_g} iterations, not {lo}-{hi}")
+    if not err_b <= SFM_POINTS_20K_B_ATOL:
+        fail(f"[{p20}] card and CPU b_packed differ by {err_b}")
+    check_launches_per_iteration(p20, launches, n_g)
+    check_kernel_shapes(p20, ks.shapes, SFM_POINTS_20K_SHAPES)
+    callback = phase_callback(torch, p20, oi20)
+    summary[p20] = dict(rms=rms_g, rms_cpu=rms_c, niterations=n_g,
+                        niterations_cpu=n_c, wall_s=wall_g, wall_cpu_s=wall_c,
+                        b_err=err_b, launches=launches, callback=callback)
+    summary["wall_phase_s"] = time.perf_counter() - t_phase
+    log(f"[{phase}] the phase {summary['wall_phase_s']:.1f} s")
+    return oi, summary
+
+
 def phase_profile(torch, phase, oi, ms_per_iteration):
     """Where the time of the f64 solve goes: its first PROFILE_ITERATIONS
     iterations once more, under torch.profiler; device time by kernel,
@@ -4060,6 +4210,8 @@ def main():
     visualization = phase_visualization(torch, tool_models, splined_model)
     del tool_models, splined_model
     stamp("visualization")
+    others["sfm_points"] = phase_sfm_points(torch)
+    stamp("sfm_points")
     # the kernels at the front end's and the tools' shapes, against their
     # plain versions
     calib_shapes = sorted({tuple(sh) for st in ("stage1", "stage2")
@@ -4119,7 +4271,9 @@ def main():
                                        if e["name"] == "cholesky_factor_solve"
                                        else 0),
             **{path: n[e["name"]] for path, n in tools["launches"].items()},
-            visualization=visualization["launches"][e["name"]])
+            visualization=visualization["launches"][e["name"]],
+            sfm_points_20k=others["sfm_points"][1]["sfm_points_20k"][
+                "launches"][e["name"]])
         e["device_us_per_launch_main_path"] = per_launch[e["name"]]
     log(f"[main] summary {json.dumps(main_path)}")
     for name, (_, summary) in list(others.items()) + list(batches.items()):

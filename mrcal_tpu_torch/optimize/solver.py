@@ -563,6 +563,57 @@ def _seg(x, ids, n):
     return x.new_zeros((x.shape[0], n) + x.shape[2:]).index_add_(1, ids, x)
 
 
+class _PointScatter:
+    """The point observations' terms of g_c, Hcc and Cp, each block kind
+    by one index_add_ over all observations (the JAX package's one-hot
+    pair assembly does the same sums as products), instead of a loop over
+    the distinct (intrinsics, extrinsics) pairs: an SfM problem has a pair
+    per frame.  The entries each observation adds to are static: their
+    flat indices are made once here.  An observation of the reference
+    camera, or of a fixed point, adds its zero rows like any other."""
+
+    def __init__(self, cl, idxp, ipt_c, Npv):
+        Nc, dev = cl.Nc, idxp.device
+        self.intr = cl.Nip > 0
+        self.ext = cl.Nce > 0
+        self.points = Npv > 0
+        ci = (cl.coli(0) + cl.Nip * idxp[:, 1])[:, None] \
+            + torch.arange(cl.Nip, device=dev)
+        ce = (cl.e0 + 6 * torch.clamp(idxp[:, 2], min=0))[:, None] \
+            + torch.arange(6, device=dev)
+        # rows of Cp: point ipt's row a starts at (3 ipt + a) Nc
+        rows = (3 * ipt_c[:, None] + torch.arange(3, device=dev)) * Nc
+
+        def block(r, c):
+            """(O, len r, len c) flat indices of rows r x columns c."""
+            return (r[:, :, None] + c[:, None, :]).reshape(-1)
+        self.g_i, self.g_e = ci.reshape(-1), ce.reshape(-1)
+        self.H_ii, self.H_ee = block(ci * Nc, ci), block(ce * Nc, ce)
+        self.H_ie, self.H_ei = block(ci * Nc, ce), block(ce * Nc, ci)
+        self.C_i, self.C_e = block(rows, ci), block(rows, ce)
+
+    @staticmethod
+    def _add(t, idx, v):
+        t.view(t.shape[0], -1).index_add_(1, idx, v.reshape(t.shape[0], -1))
+
+    def __call__(self, g_c, Hcc, Cp, gi, ge, Ji, Je, Jp, outer):
+        add = self._add
+        if self.intr:
+            add(g_c, self.g_i, gi)
+            add(Hcc, self.H_ii, outer(Ji, Ji))
+            if self.points:
+                add(Cp, self.C_i, outer(Jp, Ji))
+        if self.ext:
+            add(g_c, self.g_e, ge)
+            add(Hcc, self.H_ee, outer(Je, Je))
+            if self.intr:
+                Hie = outer(Ji, Je)
+                add(Hcc, self.H_ie, Hie)
+                add(Hcc, self.H_ei, Hie.transpose(-1, -2))
+            if self.points:
+                add(Cp, self.C_e, outer(Jp, Je))
+
+
 def _reg_per_camera(intr_row, spec: ProblemSpec, consts, target):
     """Single-camera regularization residuals (distortion then
     centerpixel), same math as residuals_regularization."""
@@ -666,8 +717,6 @@ def _build_normal_equations_batch(spec: ProblemSpec, arrays, static_idx,
     Nop = len(idxp_np) if spec.Nobservations_point else 0
     pairs_b = [(k, _pair_ids(v, Nob, dev))
                for k, v in _distinct_pairs(idxb_np[:, 1:3])] if Nob else []
-    pairs_p = [(k, _pair_ids(v, Nop, dev))
-               for k, v in _distinct_pairs(idxp_np[:, 1:3])] if Nop else []
     idxb = torch.tensor(idxb_np, dtype=torch.int64, device=dev)
     idxp = torch.tensor(idxp_np, dtype=torch.int64, device=dev)
     if Nob:
@@ -678,6 +727,7 @@ def _build_normal_equations_batch(spec: ProblemSpec, arrays, static_idx,
         ext_valid_p = (idxp[:, 2] >= 0).to(dt)[:, None, None]
         point_var = (idxp[:, 0] < Npv).to(dt)[:, None, None]
         ipt_c = torch.clamp(idxp[:, 0], 0, max(Npv - 1, 0))
+        point_scatter = _PointScatter(cl, idxp, ipt_c, Npv)
     Ntri = (len(rows_of.i0) if spec.num_measurements_points_triangulated
             else 0)
     if Ntri:
@@ -795,26 +845,7 @@ def _build_normal_equations_batch(spec: ProblemSpec, arrays, static_idx,
             if Npv:
                 g_p[:, :Npv] += _seg(gp, ipt_c, Npv)
                 Hpp[:, :Npv] += _seg(outer(Jp, Jp), ipt_c, Npv)
-            for (ci, ce), oid in pairs_p:
-                Ji_p, Je_p, Jp_p = (_take(Ji, oid), _take(Je, oid),
-                                    _take(Jp, oid))
-                ipt_p = ipt_c if oid is None else ipt_c[oid]
-                i0 = cl.coli(ci)
-                g_c[:, i0:i0 + Nip] += torch.sum(_take(gi, oid), dim=1)
-                Hcc[:, i0:i0 + Nip, i0:i0 + Nip] += outer_all(Ji_p, Ji_p)
-                if Npv:
-                    Cp[..., i0:i0 + Nip] += _seg(outer(Jp_p, Ji_p), ipt_p,
-                                                 Npv)
-                if ce >= 0:
-                    e0 = cl.cole(ce)
-                    g_c[:, e0:e0 + 6] += torch.sum(_take(ge, oid), dim=1)
-                    Hcc[:, e0:e0 + 6, e0:e0 + 6] += outer_all(Je_p, Je_p)
-                    Hie = outer_all(Ji_p, Je_p)
-                    Hcc[:, i0:i0 + Nip, e0:e0 + 6] += Hie
-                    Hcc[:, e0:e0 + 6, i0:i0 + Nip] += Hie.transpose(1, 2)
-                    if Npv:
-                        Cp[..., e0:e0 + 6] += _seg(outer(Jp_p, Je_p), ipt_p,
-                                                   Npv)
+            point_scatter(g_c, Hcc, Cp, gi, ge, Ji, Je, Jp, outer)
 
         # ---------------- triangulated-point pairs ----------------
         x_tri = zeros((P, 0))

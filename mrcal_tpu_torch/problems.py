@@ -10,7 +10,9 @@ are the bench's configurations of those names; ``cahvor_1cam`` and
 ``cahvore_1cam`` are opencv8_1cam's with the CAHVOR and CAHVORE
 models.  ``stereo_opencv8_2cam`` is a two-camera OPENCV8 rig calibrated
 from a chessboard dance made by ``synthetic_data``, as the JAX package's
-tests make their scenes.
+tests make their scenes.  ``sfm_points`` is an aerial survey with its
+ground features in the state (mrcal's test-sfm-fixed-points), from
+``synthetic_data.make_tracks``.
 
 The builders draw from the GLOBAL numpy RNG in exactly the JAX package's
 order (``np.random.seed(0)``, then ``randn`` for the frames, then ``randn``
@@ -29,7 +31,8 @@ import torch
 from . import convert, synthetic_data
 from .cameramodel import cameramodel
 from .lensmodels import lensmodel_num_params, project_core
-from .poseutils import _rt_from_Rt, _transform_point_rt
+from .poseutils import (_compose_Rt2, _invert_Rt, _invert_rt, _rt_from_Rt,
+                        _transform_point_Rt, _transform_point_rt)
 from .synthetic_data import make_perfect_observations
 
 _CPU = torch.device("cpu")
@@ -72,6 +75,16 @@ RIG16CAM = dict(Ncameras=16, Nframes=40, model="LENSMODEL_OPENCV8", W=14,
 # Nstate 536 = 2*12 + 6 + 84*6 + 2)
 STEREO_OPENCV8_2CAM = dict(Ncameras=2, spacing=0.077, warp=(0.002, -0.001),
                            rig_spacing=0.22)
+
+# sfm_points: a camera flying 100 m over the ground, a frame each 20 m,
+# its features tracked over 4 frames each; the features are in the state,
+# the last 4 of them fixed (surveyed).  At this size: 398 frames, 15000
+# points, Nmeasurements 120000, Nstate 47370 = 397*6 + 14996*3.
+# sfm_points_20k (Nobservations_total=20000): 134 frames, 5000 points,
+# Nmeasurements 40000, Nstate 15786 = 133*6 + 4996*3
+SFM_POINTS = dict(Nobservations_total=60000, Nobservations_image=150,
+                  noise_px=0.3, Npoints_fixed=4)
+SFM_POINTS_20K = dict(SFM_POINTS, Nobservations_total=20000)
 
 
 def make_problem(Ncameras=2, Nframes=8, model="LENSMODEL_OPENCV8", W=6, H=5,
@@ -244,14 +257,9 @@ def sfm_triangulated(Ncameras=8, Npoints=500):
     )
 
 
-def stereo_opencv8_2cam_truth(Nframes=84, model="LENSMODEL_OPENCV8", W=14,
-                              H=14, *, device=None):
-    """The true geometry of stereo_opencv8_2cam (the same draws from the
-    recipe's seed): dict of the two cameras' intrinsics (2, N) and their
-    cameramodels, camera 1's extrinsics rt_cam_ref (1, 6), the boards'
-    Rt_ref_boardref (Nframes, 4, 3) and their exact projections q
-    (Nframes, 2, H, W, 2), the warp and the spacing.  The projections run
-    on `device` (the card unless given "cpu"); the output is numpy."""
+def _stereo_opencv8_2cam_models(model):
+    """stereo_opencv8_2cam's two true cameramodels, drawn after
+    np.random.seed(0) (the recipe's draws that come before its boards)."""
     cfg = STEREO_OPENCV8_2CAM
     Nc = cfg["Ncameras"]
     np.random.seed(0)
@@ -267,9 +275,24 @@ def stereo_opencv8_2cam_truth(Nframes=84, model="LENSMODEL_OPENCV8", W=14,
     ext = np.array([[0.01 * i, -0.02 * i, 0.005 * i,
                      -cfg["rig_spacing"] * i, 0.02 * i, 0.01 * i]
                     for i in range(1, Nc)])
-    models = [cameramodel(intrinsics=(model, intr[i]), imagersize=imagersize,
-                          rt_cam_ref=ext[i - 1] if i else np.zeros(6))
-              for i in range(Nc)]
+    return [cameramodel(intrinsics=(model, intr[i]), imagersize=imagersize,
+                        rt_cam_ref=ext[i - 1] if i else np.zeros(6))
+            for i in range(Nc)]
+
+
+def stereo_opencv8_2cam_truth(Nframes=84, model="LENSMODEL_OPENCV8", W=14,
+                              H=14, *, device=None):
+    """The true geometry of stereo_opencv8_2cam (the same draws from the
+    recipe's seed): dict of the two cameras' intrinsics (2, N) and their
+    cameramodels, camera 1's extrinsics rt_cam_ref (1, 6), the boards'
+    Rt_ref_boardref (Nframes, 4, 3) and their exact projections q
+    (Nframes, 2, H, W, 2), the warp and the spacing.  The projections run
+    on `device` (the card unless given "cpu"); the output is numpy."""
+    cfg = STEREO_OPENCV8_2CAM
+    models = _stereo_opencv8_2cam_models(model)
+    intr = np.stack([m.intrinsics()[1] for m in models])
+    ext = np.stack([m.extrinsics_rt_fromref() for m in models[1:]])
+    imagersize = models[0].imagersize()
     q, Rt_ref_boardref = synthetic_data.synthesize_board_observations(
         models, object_width_n=W, object_height_n=H,
         object_spacing=cfg["spacing"], calobject_warp=np.array(cfg["warp"]),
@@ -318,3 +341,65 @@ def stereo_opencv8_2cam(Nframes=84, model="LENSMODEL_OPENCV8", W=14, H=14,
     oi = perturbed_oi(oi, seed=1)
     oi["do_apply_outlier_rejection"] = False
     return oi
+
+
+def sfm_points(Nobservations_total=60000, Nobservations_image=150,
+               noise_px=0.3, Npoints_fixed=4, seed=0, *, device=None):
+    """The sfm_points optimization_inputs: SfM with discrete points in the
+    state (mrcal's test-sfm-fixed-points).  Camera 0 of
+    stereo_opencv8_2cam (LENSMODEL_OPENCV8, 800x600, fx 750) flies the
+    library's default track of ``synthetic_data.make_tracks`` (100 m up, a
+    frame each 20 m); the points and frames that have observations are
+    kept, in their order.  Frame 0 is the reference; the others' extrinsics
+    are rt_cam_ref = rt(Rt_cam_NED Rt_NED_cam0), and the points are in the
+    reference.  The observations get N(0, noise_px) noise from
+    np.random.default_rng(seed), weight 1.  The last Npoints_fixed points
+    are fixed (mrcal requires them last); the intrinsics are fixed and
+    outlier rejection is off.  The geometry is perturbed by
+    perturbed_oi(seed=1)'s draws, the extrinsics' on each frame's pose
+    rt_ref_cam, and the fixed points are put back at the truth.  The
+    projections run on `device` (the card unless given "cpu"); the output
+    is numpy.
+
+    Returns (optimization_inputs, truth): truth holds the true points (N,
+    3) and extrinsics_rt_fromref (Nframes - 1, 6)."""
+    m = _stereo_opencv8_2cam_models("LENSMODEL_OPENCV8")[0]
+    q, idx, points, Rt_NED_cam = synthetic_data.make_tracks(
+        m, Nobservations_total=Nobservations_total,
+        Nobservations_image=Nobservations_image, device=device)
+    ipoints, ip = np.unique(idx[:, 0], return_inverse=True)
+    icams, ic = np.unique(idx[:, 1], return_inverse=True)
+    Rt_NED_cam = torch.as_tensor(Rt_NED_cam[icams])
+    Rt_cam0_NED = _invert_Rt(Rt_NED_cam[0])
+    ext = _rt_from_Rt(_compose_Rt2(_invert_Rt(Rt_NED_cam[1:]),
+                                   Rt_NED_cam[0])).numpy()
+    points = _transform_point_Rt(Rt_cam0_NED,
+                                 torch.as_tensor(points[ipoints])).numpy()
+    rng = np.random.default_rng(seed)
+    q = q + rng.normal(0.0, noise_px, q.shape)
+    lens, intr = m.intrinsics()
+    oi = dict(
+        intrinsics=intr[None].copy(),
+        extrinsics_rt_fromref=ext,
+        points=points,
+        observations_point=np.concatenate([q, np.ones((len(q), 1))], axis=1),
+        indices_point_camintrinsics_camextrinsics=np.stack(
+            [ip, np.zeros_like(ip), ic - 1], axis=1).astype(np.int32),
+        lensmodel=lens,
+        imagersizes=m.imagersize()[None].copy(),
+        Npoints_fixed=Npoints_fixed,
+        do_optimize_intrinsics_core=False,
+        do_optimize_intrinsics_distortions=False,
+        do_apply_outlier_rejection=False)
+    truth = dict(points=points, extrinsics_rt_fromref=ext)
+    # perturbed_oi's draws go onto each frame's pose rt_ref_cam (its
+    # attitude and position), as a navigation prior's errors would: added
+    # to rt_cam_ref, a rotation draw turns a frame about the reference,
+    # which moves one d m away by ~0.01 d m (tens of m over the track)
+    oi["extrinsics_rt_fromref"] = _invert_rt(torch.as_tensor(ext)).numpy()
+    oi = perturbed_oi(oi, seed=1)
+    oi["extrinsics_rt_fromref"] = _invert_rt(
+        torch.as_tensor(oi["extrinsics_rt_fromref"])).numpy()
+    if Npoints_fixed:
+        oi["points"][-Npoints_fixed:] = points[-Npoints_fixed:]
+    return oi, truth

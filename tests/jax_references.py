@@ -1204,3 +1204,89 @@ def run_jax_show_tools(runs):
                    + (list(saved),))
         close_figures()
     return out
+
+
+# ----------------------------------------------------------------------------
+# tests/test_torch_sfm_points.py
+# ----------------------------------------------------------------------------
+
+def sfm_points_scene(name):
+    """The optimization_inputs of tests/test_sfm_points.py's two solves,
+    built as its tests build them: "noiseless" (test_sfm_points_recovery:
+    exact observations, the fixed points anchoring the gauge) and "noisy"
+    (test_sfm_points_noisy: 0.2 px), and "noisy_core", the noisy scene
+    with the intrinsics core optimized."""
+    from test_sfm_points import make_sfm_scene
+    noisy = name.startswith("noisy")
+    scene = make_sfm_scene(sigma=0.2, seed=2) if noisy else \
+        make_sfm_scene(sigma=0.0)
+    np.random.seed(3 if noisy else 1)
+    pts = scene["points_true"].copy()
+    Nfix = scene["Npoints_fixed"]
+    pts[:len(pts) - Nfix] += np.random.randn(len(pts) - Nfix, 3) * \
+        (0.03 if noisy else 0.05)
+    ext = scene["extrinsics_true"] + \
+        np.random.randn(*scene["extrinsics_true"].shape) * \
+        (0.005 if noisy else 0.01)
+    oi = dict(
+        intrinsics=scene["intrinsics"].copy(),
+        extrinsics_rt_fromref=ext,
+        points=pts,
+        observations_point=scene["observations_point"].copy(),
+        indices_point_camintrinsics_camextrinsics=scene["indices_point"],
+        lensmodel=scene["lensmodel"],
+        imagersizes=scene["imagersizes"],
+        Npoints_fixed=Nfix,
+        do_optimize_intrinsics_core=False,
+        do_optimize_intrinsics_distortions=False,
+        do_apply_outlier_rejection=False)
+    if name == "noisy_core":
+        oi["do_optimize_intrinsics_core"] = True
+    if not noisy:
+        oi.update(frames_rt_toref=None, observations_board=None,
+                  indices_frame_camintrinsics_camextrinsics=None,
+                  calobject_warp=None, do_optimize_extrinsics=True,
+                  do_optimize_frames=True, do_apply_regularization=True)
+    return oi
+
+
+def sfm_points_reference(scene, callback=False, solve=True):
+    """The JAX package's f64 optimize() of a discrete-point problem: scene
+    is a name of sfm_points_scene (built here) or optimization_inputs.
+    Returns (the inputs, dict of the normal equations at the inputs' state
+    ("ne") and of the solve: rms, b_packed, x, iterations, the solved
+    points and extrinsics; with callback, optimizer_callback's b, x and J
+    (CSR: shape, indptr, indices, data) at the inputs)."""
+    import copy
+    import jax
+    import jax.numpy as jnp
+    import mrcal_tpu
+    from mrcal_tpu.optimize import solver
+    from mrcal_tpu.optimize.layout import spec_from_inputs
+    from mrcal_tpu.optimize.residuals import (arrays_from_inputs,
+                                              pack_params, params_from_arrays)
+    oi = sfm_points_scene(scene) if isinstance(scene, str) else scene
+    spec = spec_from_inputs(**oi)
+    arrays = arrays_from_inputs(**oi)
+    b0 = pack_params(params_from_arrays(arrays), spec)
+    ne = jax.jit(solver.build_normal_equations(
+        spec, arrays, dict(board=np.asarray(arrays["indices_board"]),
+                           point=np.asarray(arrays["indices_point"]))))(
+        jnp.asarray(b0), arrays)
+    out = dict(ne={k: np.asarray(v) for k, v in ne.items()})
+    if not solve:
+        return oi, out
+    if callback:
+        b, x, J = mrcal_tpu.optimizer_callback(**copy.deepcopy(oi))
+        J = J.tocsr()
+        out["callback"] = dict(b=np.asarray(b), x=np.asarray(x),
+                               shape=J.shape, indptr=J.indptr,
+                               indices=J.indices, data=J.data)
+    oi_j = copy.deepcopy(oi)
+    stats = mrcal_tpu.optimize(precision="f64", **oi_j)
+    out.update(rms=float(stats["rms_reproj_error__pixels"]),
+               b_packed=np.asarray(stats["b_packed"]),
+               x=np.asarray(stats["x"]), niterations=stats["niterations"],
+               points=oi_j["points"],
+               extrinsics_rt_fromref=oi_j["extrinsics_rt_fromref"])
+    return oi, out
