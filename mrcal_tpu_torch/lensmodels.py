@@ -480,19 +480,20 @@ _CLOSED_FORM_UNPROJECT = {
 
 
 # Gauss-Newton iterations of the unprojection of the models without a
-# closed form: a fixed count, the JAX package's
+# closed form: a fixed count, the JAX package's default
 UNPROJECT_ITERATIONS = 25
 
 
-def unproject_core(q, intrinsics, lensmodel):
+def unproject_core(q, intrinsics, lensmodel,
+                   iterations=UNPROJECT_ITERATIONS):
     """v = unproject(q).  q: (...,2), intrinsics: (...,Nparams) -> (...,3).
 
     The closed-form models keep the reference's non-unit conventions
-    (PINHOLE: v_z = 1).  The OPENCV, CAHVOR(E) and splined models solve
-    project(v(u)) = q for u
+    (PINHOLE: v_z = 1) and ignore `iterations`.  The OPENCV, CAHVOR(E) and
+    splined models solve project(v(u)) = q for u
     in normalized stereographic coordinates by Gauss-Newton, starting from
-    the stereographic guess with the same core, for a fixed number of
-    iterations, with the 2x2 normal equations solved by Cramer's rule.
+    the stereographic guess with the same core, for `iterations` steps,
+    with the 2x2 normal equations solved by Cramer's rule.
     Every point iterates at once; the rows of its 2x2 Jacobian come from
     two reverse-mode products (two cotangents), so the result carries no
     autograd graph."""
@@ -507,7 +508,7 @@ def unproject_core(q, intrinsics, lensmodel):
         -1, intrinsics.shape[-1])
     u = torch.stack([(qb[:, 0] - ib[:, 2]) / ib[:, 0],
                      (qb[:, 1] - ib[:, 3]) / ib[:, 1]], dim=-1)
-    for _ in range(UNPROJECT_ITERATIONS):
+    for _ in range(iterations):
         with torch.enable_grad():
             uu = u.requires_grad_(True)
             q_u = project_core(stereographic_v_from_uv(uu), ib, lm)

@@ -175,11 +175,14 @@ def _csr(coo, spec: ProblemSpec):
     return J
 
 
-def optimizer_callback(no_jacobian=False, *, device=None, **kw):
+def optimizer_callback(no_jacobian=False, no_factorization=True, *,
+                       device=None, **kw):
     """One cost evaluation at the state in the inputs: returns (b_packed,
     x, J) as numpy arrays, with J a scipy CSR matrix of shape
     (Nmeasurements, Nstate) in packed coordinates (None with
-    no_jacobian=True), as mrcal.optimizer_callback does.  The evaluation
+    no_jacobian=True), as mrcal.optimizer_callback does.  no_factorization
+    is accepted, by position or by keyword, and has no effect: no
+    factorization is returned, as in the JAX package.  The evaluation
     runs on `device`: None means the CUDA card, "cpu" the CPU."""
     device = resolve_device(device)
     kw = normalize_inputs(kw)

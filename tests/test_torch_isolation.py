@@ -8,9 +8,13 @@ matplotlib, and no module of the port (nor chip_smoke.py) imports jax or
 mrcal_tpu.  The public entry points of the projection, utils,
 uncertainty, image, detector, calibration, dense-stereo and
 visualization modules, and every tool's main, run on the card unless told
-otherwise, and the top level exports every dense-stereo and visualization
-name of the JAX package with its signature, plus device (the three host
-helpers of visualization exactly the JAX signature).  Every JAX script
+otherwise.  Every public callable of the JAX package's top level,
+optimize, parallel and ops (and the core functions the port's top level
+adds) is the port's, with the JAX signature: the same parameters in the
+same order, kinds and defaults, and additions only where no JAX call
+binds differently (every dense-stereo and show_* name adds exactly a
+keyword-only device); what it leaves out is a written list of TPU
+internals.  Every JAX script
 has its module in mrcal_tpu_torch.tools, which runs with python -m and
 has no CPU fallback."""
 
@@ -342,27 +346,142 @@ def test_dense_stereo_exports_cover_the_jax_package():
     assert len(DENSE_STEREO) == 12
 
 
-def _assert_signature(name, device=True):
-    """The port's top-level `name` has the JAX package's signature, plus
-    a keyword-only device=None if `device`."""
+# the JAX package's namespaces whose public callables the port carries
+NAMESPACES = ("", ".optimize", ".parallel", ".ops")
+# what the port leaves out of them, each a TPU internal: the JAX mesh axis
+# of the sharded solve (a torch.distributed group has no named axes), the
+# choice of the Pallas kernel, and the Pallas kernel itself (the port's is
+# CUDA, behind batched_cholesky_solve)
+TPU_ONLY_PARAMETERS = {".parallel.sharded_normal_equations": {"axis"},
+                       ".parallel.sharded_lm_step": {"axis"},
+                       ".parallel.sharded_lm_solve_device": {"axis"},
+                       ".ops.batched_cholesky_solve": {"use_pallas"}}
+TPU_ONLY_CALLABLES = {".ops.batched_cholesky_solve_pallas"}
+
+
+def _public_callables():
+    """"namespace.name" of every public callable (classes too) of the
+    JAX package's NAMESPACES."""
+    import importlib
     import inspect
-    import mrcal_tpu
-    import mrcal_tpu_torch
-    want = inspect.signature(getattr(mrcal_tpu, name)).parameters
-    got = dict(inspect.signature(getattr(mrcal_tpu_torch, name)).parameters)
+    out = []
+    for ns in NAMESPACES:
+        m = importlib.import_module("mrcal_tpu" + ns)
+        out += [f"{ns}.{n}" for n in sorted(vars(m)) if not n.startswith("_")
+                and callable(getattr(m, n))
+                and not inspect.ismodule(getattr(m, n))]
+    return out
+
+
+PUBLIC_CALLABLES = _public_callables()
+
+
+def _resolve(package, qualname):
+    import importlib
+    ns, name = qualname.rsplit(".", 1)
+    return getattr(importlib.import_module(package + ns), name, None)
+
+
+def _same_default(a, b):
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.array_equal(a, b)
+    return a is b or a == b
+
+
+def _assert_signature(qualname, device=None):
+    """The port's callable `qualname` ("namespace.name") has the JAX
+    package's signature: every JAX parameter (but TPU_ONLY_PARAMETERS'),
+    in its order, with its kind and default.  What the port adds has a
+    default, and is keyword-only or comes after every positional JAX
+    parameter.  device=True: the port adds a keyword-only device=None;
+    device=False: it adds nothing."""
+    import inspect
+    want_fn, got_fn = (_resolve(p, qualname)
+                       for p in ("mrcal_tpu", "mrcal_tpu_torch"))
+    assert got_fn is not None, f"mrcal_tpu_torch{qualname} is missing"
+    try:
+        want = inspect.signature(want_fn).parameters
+    except ValueError:      # an exception class: the builtin __init__
+        assert isinstance(want_fn, type) and isinstance(got_fn, type)
+        assert [c.__name__ for c in want_fn.__mro__] == \
+            [c.__name__ for c in got_fn.__mro__]
+        return
+    got = inspect.signature(got_fn).parameters
+    skip = TPU_ONLY_PARAMETERS.get(qualname, set())
+    assert skip <= set(want)
+    want = [p for p in want.values() if p.name not in skip]
+    assert [n for n in got if n in {p.name for p in want}] == \
+        [p.name for p in want]
+    for p in want:
+        assert got[p.name].kind is p.kind, p.name
+        assert _same_default(got[p.name].default, p.default), p.name
+    positional = (inspect.Parameter.POSITIONAL_ONLY,
+                  inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    last = max((list(got).index(p.name) for p in want
+                if p.kind in positional), default=-1)
+    added = [q for q in got.values() if q.name not in
+             {p.name for p in want}]
+    for i, q in ((list(got).index(q.name), q) for q in added):
+        assert q.default is not inspect.Parameter.empty, q.name
+        assert q.kind is inspect.Parameter.KEYWORD_ONLY or \
+            (q.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD
+             and i > last), q.name
+    if device is not None:
+        assert [q.name for q in added] == (["device"] if device else [])
     if device:
-        device = got.pop("device")
-        assert device.kind is inspect.Parameter.KEYWORD_ONLY
-        assert device.default is None
-    assert [(p.name, p.kind, p.default) for p in got.values()] == \
-        [(p.name, p.kind, p.default) for p in want.values()]
+        assert got["device"].kind is inspect.Parameter.KEYWORD_ONLY
+        assert got["device"].default is None
+
+
+def _port_extras():
+    """The public callables of the port's top level that the JAX
+    package's lacks, as "module.name" below the package
+    (".lensmodels.unproject_core"): the JAX package has each in the
+    module of the same name."""
+    import inspect
+    import mrcal_tpu_torch
+    jax_top = {n[1:] for n in PUBLIC_CALLABLES if n.count(".") == 1}
+    return sorted(f"{f.__module__[len('mrcal_tpu_torch'):]}.{n}"
+                  for n, f in vars(mrcal_tpu_torch).items()
+                  if not n.startswith("_") and callable(f)
+                  and not inspect.ismodule(f) and n not in jax_top)
+
+
+PORT_EXTRAS = _port_extras()
+
+
+def test_public_callables_cover_the_jax_namespaces():
+    """Every public callable of the four namespaces, and nothing left out
+    but the TPU internals."""
+    assert len(set(n.rsplit(".", 1)[1] for n in PUBLIC_CALLABLES)) == 164
+    assert set(TPU_ONLY_PARAMETERS) | TPU_ONLY_CALLABLES <= \
+        set(PUBLIC_CALLABLES)
+    assert {n for n in PUBLIC_CALLABLES
+            if _resolve("mrcal_tpu_torch", n) is None} == TPU_ONLY_CALLABLES
+
+
+def test_port_extras_are_the_core_functions():
+    assert PORT_EXTRAS == [".lensmodels.project_core",
+                           ".lensmodels.unproject_core",
+                           ".optimize.layout.camera_extrinsics_indices"]
+
+
+@pytest.mark.parametrize("qualname", [n for n in PUBLIC_CALLABLES
+                                      if n not in TPU_ONLY_CALLABLES]
+                         + PORT_EXTRAS)
+def test_public_callable_matches_jax_signature(qualname):
+    """Each public callable of the JAX package's top level, optimize,
+    parallel and ops, and each the port's top level adds, is the port's
+    with the JAX signature and at most additions that leave every JAX
+    call binding as before."""
+    _assert_signature(qualname)
 
 
 @pytest.mark.parametrize("name", DENSE_STEREO)
 def test_dense_stereo_export_matches_jax_signature(name):
     """Every dense-stereo name of the JAX package's top level is the
     port's too, with the JAX signature plus a keyword-only device."""
-    _assert_signature(name)
+    _assert_signature("." + name, device=True)
 
 
 VISUALIZATION = _jax_exports("visualization")
@@ -383,7 +502,7 @@ def test_visualization_export_matches_jax_signature(name):
     """Every visualization name of the JAX package's top level is the
     port's too: the show_* functions with the JAX signature plus a
     keyword-only device, the host helpers with exactly the JAX one."""
-    _assert_signature(name, device=name not in HOST_HELPERS)
+    _assert_signature("." + name, device=name not in HOST_HELPERS)
 
 
 def test_every_tool_that_draws_nothing_is_ported():

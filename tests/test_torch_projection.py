@@ -2,7 +2,8 @@
 values at 1e-12 (f64, r = 0 included) and autograd Jacobians against
 jax.jacrev at 1e-10; project/unproject with their gradients for every
 ported family (the splined one at 9x7 knots) and the special-model pairs
-at 1e-10 relative."""
+at 1e-10 relative; unproject_core after 1, 3 and 25 Gauss-Newton steps
+(OPENCV8, CAHVOR, CAHVORE, splined) at 1e-12 relative."""
 
 
 import numpy as np
@@ -240,6 +241,52 @@ def test_project_unproject_gradients_match_jax(projection_refs, model):
                               get_gradients=True, device="cpu")
         for a, b in zip(got, ref[f"unproject {n}"]):
             _close(a.numpy(), b, 1e-10)
+
+
+# the models whose unproject_core iterates, and its Gauss-Newton counts
+ITERATIVE = ["LENSMODEL_OPENCV8", "LENSMODEL_CAHVOR",
+             "LENSMODEL_CAHVORE_linearity=0.37", SPLINED]
+GAUSS_NEWTON_STEPS = [1, 3, 25]
+
+
+def _unproject_core_inputs(model):
+    if model in FAMILIES:
+        _, q, intr = _projection_inputs(model)
+        return q, intr
+    from test_torch_cahvor import _intrinsics as cahvor_intrinsics
+    q = np.random.default_rng(9).uniform(150, 650, size=(2, 5, 2))
+    return q * [1.0, 0.75], cahvor_intrinsics(model)
+
+
+@pytest.mark.parametrize("iterations", GAUSS_NEWTON_STEPS)
+@pytest.mark.parametrize("model", ITERATIVE)
+def test_unproject_core_iterations_match_jax(model, iterations):
+    """unproject_core(..., iterations=k) is the JAX package's after the
+    same k Gauss-Newton steps, at 1e-12 relative."""
+    from mrcal_tpu.lensmodels import unproject_core as j_unproject_core
+    from mrcal_tpu_torch import unproject_core
+    q, intr = _unproject_core_inputs(model)
+    v_j = np.asarray(jax.jit(j_unproject_core, static_argnums=(2, 3))(
+        q, intr, model, iterations))
+    v_t = unproject_core(torch.as_tensor(q), torch.as_tensor(intr), model,
+                         iterations=iterations).numpy()
+    assert v_t.shape == v_j.shape == (2, 5, 3)
+    assert np.abs(v_t - v_j).max() <= 1e-12 * np.abs(v_j).max()
+
+
+@pytest.mark.parametrize("model", ITERATIVE + ["LENSMODEL_PINHOLE"])
+def test_unproject_core_defaults_to_25_iterations(model):
+    """The default count is 25, bit for bit; the closed-form models
+    ignore the count."""
+    from mrcal_tpu_torch import unproject_core
+    q, intr = (torch.as_tensor(a) for a in _unproject_core_inputs(model))
+    v = unproject_core(q, intr, model)
+    assert torch.equal(v, unproject_core(q, intr, model, iterations=25))
+    if model == "LENSMODEL_PINHOLE":
+        assert torch.equal(v, unproject_core(q, intr, model, iterations=1))
+    else:
+        assert not torch.equal(v, unproject_core(q, intr, model,
+                                                 iterations=1))
 
 
 @pytest.mark.parametrize("special", SPECIAL)

@@ -1,6 +1,7 @@
 """The port's normal equations, Schur step, LM step and optimize() against
 the JAX package on __graft_entry__._make_problem()'s problem and on a
-small discrete-point problem, in float64 on the CPU."""
+small discrete-point problem, in float64 on the CPU; optimizer_callback
+takes no_factorization as the JAX package does."""
 
 import re
 from functools import partial
@@ -235,6 +236,41 @@ def test_device_loop_false_matches_the_jax_host_loop(host_loop_solve,
                   ).max() < 1e-5
     for k in ("intrinsics", "extrinsics_rt_fromref", "frames_rt_toref"):
         _close(oi_t[k], oi_j[k], 1e-5)
+
+
+@pytest.mark.parametrize("no_jacobian", [True, False])
+def test_optimizer_callback_takes_no_factorization(problems, no_jacobian,
+                                                   monkeypatch):
+    """no_factorization, by position or by keyword, as the JAX package
+    takes it: the keyword-free call's (b, x) and J exactly, and the
+    argument never reaches the inputs' normalization or the spec."""
+    from mrcal_tpu_torch import optimizer_callback
+    from mrcal_tpu_torch.optimize import jacobian
+    seen = []
+    for name in ("normalize_inputs", "spec_from_inputs"):
+        def recording(*args, _f=getattr(jacobian, name), **kw):
+            seen.append({*kw, *(k for a in args if isinstance(a, dict)
+                                for k in a)})
+            return _f(*args, **kw)
+        monkeypatch.setattr(jacobian, name, recording)
+    oi = problems["board"].oi
+    want = optimizer_callback(no_jacobian=no_jacobian, device="cpu",
+                              **_copy(oi))
+    for got in (optimizer_callback(no_jacobian, False, device="cpu",
+                                   **_copy(oi)),
+                optimizer_callback(no_jacobian=no_jacobian,
+                                   no_factorization=False, device="cpu",
+                                   **_copy(oi))):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        if no_jacobian:
+            assert got[2] is None and want[2] is None
+        else:
+            assert (got[2] != want[2]).nnz == 0
+            np.testing.assert_array_equal(got[2].indptr, want[2].indptr)
+            np.testing.assert_array_equal(got[2].indices, want[2].indices)
+    assert len(seen) == 6
+    assert not any("no_factorization" in keys for keys in seen)
 
 
 def test_optimize_without_device_needs_a_card(problems):
